@@ -1,0 +1,521 @@
+#!/usr/bin/env python3
+"""Drive repro_torch's main path on one NVIDIA GPU and check its kernels.
+
+Run from the root of a checkout, with no arguments, on a machine with one
+CUDA card:
+
+    python3 chip_smoke.py
+
+Phases:
+1. Device: fails unless ``torch.cuda.is_available()``; prints the card's
+   name and power limit as nvidia-smi reports them.
+2. Build: compiles every CUDA kernel under src/repro_torch/kernels/csrc
+   with nvcc for sm_90a, one process per source, all at once.
+3. Kernels against their plain versions, on the card, at the main path's
+   shapes, for l2/ip/cos: the burst's gathered scoring (16 lanes x 32
+   rows), the rebuild's corpus scoring (16 x n), and adjacency / greedy /
+   fused round at W in {64, 256, 1024}, k = 10. Integer outputs must be
+   equal on inputs kept tie-free; float outputs within 1e-5. Times are CUDA
+   events, median of 20 runs.
+4. The main path at Deep1M's shape: n = 1,000,000 seeded deep-like vectors
+   of d = 96 (l2), a KNN graph with M = 16 built on the card, eps
+   calibrated to an expected G^eps degree of 100. A ``ProgressiveEngine``
+   of 16 lanes (k = 10, ef = 40, kernels "auto") is prewarmed and serves
+   64 held-out PSS queries with continuous batching (admit, step, harvest,
+   recycle), as the serving front door drives it. Every result must satisfy
+   the diversity condition. The lockstep entry point ``batch_pss`` then
+   serves the first 16 queries again on the kernels (and once more under
+   ``torch.profiler``) and the first 8 on the plain versions: both must
+   give the same ids and certificates as the engine.
+
+The last lines are the kernels' JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``. Details go to
+chiprun_out/chip_smoke.json. Any failure exits non-zero before the last line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "chiprun_out")
+
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+PEAK_F32_FLOP_S = 67e12      # H100 SXM float32 outside the tensor cores
+RTOL = ATOL = 1e-5
+# the main path's configuration; only the data seed, the corpus size (the
+# stated cut, if one is needed) and the query count are arguments
+D, M_GRAPH, LANES, K, EF, PHI, RERUN = 96, 16, 16, 10, 40, 100.0, 8
+
+
+T0 = time.perf_counter()
+
+
+def log(*a):
+    print(f"[{time.perf_counter() - T0:7.1f}s]", *a, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
+    tb, tf = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_S
+    return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+def time_ms(torch, fn, reps: int = 20) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def deep_like(torch, n: int, d: int, seed: int, device):
+    """The repo's deep-like mixture (64 Gaussian centres, noise 0.7), made
+    on the card from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    centers = torch.randn((64, d), generator=g, device=device)
+    which = torch.randint(0, 64, (n,), generator=g, device=device)
+    return (centers[which]
+            + torch.randn((n, d), generator=g, device=device) * 0.7).contiguous()
+
+
+# ------------------------------------------------------------- phase 3 ----
+
+def tie_free_prefixes(torch, sim, x, B, W, metric, seed, device):
+    """Sorted queue prefixes of B lanes at width W and per-lane eps at the
+    0.9 quantile of candidate-pair similarity. A candidate with any pair
+    within 1e-4 of its lane's eps is made a -1 sentinel, so no valid pair
+    sits near a threshold."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = x.shape[0]
+    ids = torch.randint(0, n, (B, W), generator=g, device=device,
+                        dtype=torch.int32)
+    scores = torch.sort(torch.randn((B, W), generator=g, device=device),
+                        dim=1, descending=True).values
+    rows = x[ids.long()]
+    s = sim.pairwise_sim(rows, rows, metric)
+    eps = torch.quantile(s.flatten(1)[:, :: max(1, W * W // 4096)], 0.9,
+                         dim=1)
+    near = ((s - eps[:, None, None]).abs() <= 1e-4)
+    near &= ~torch.eye(W, dtype=torch.bool, device=device)
+    bad = near.any(dim=2)
+    ids = torch.where(bad, -1, ids)
+    scores = torch.where(bad, float("-inf"), scores)
+    # re-sort so sentinels sit where a queue keeps them: at the back
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    ids, scores = torch.gather(ids, 1, order), torch.gather(scores, 1, order)
+    Ks = torch.randint(W // 2, W + 1, (B,), generator=g, device=device,
+                       dtype=torch.int32)
+    return ids.contiguous(), scores.contiguous(), Ks, eps.contiguous()
+
+
+def check_kernels(torch, ops, sim, x, qs, seed, report):
+    """Phase 3: every kernel against its plain version; returns timings."""
+    device = x.device
+    n, d = x.shape
+    B, M, k = qs.shape[0], 2 * M_GRAPH, K
+    nbrs = torch.randint(-1, n, (B, M), device=device, dtype=torch.int32,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(seed + 1))
+    errs: dict = {}
+    for metric in ("l2", "ip", "cos"):
+        e = {}
+        got = ops.batch_similarity_gather(qs, x, nbrs, metric, impl="cuda")
+        ref = ops.batch_similarity_gather(qs, x, nbrs, metric, impl="ref")
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        e["batch_similarity_gather"] = float((got - ref).abs().max())
+        got = ops.batch_similarity(qs, x, metric, impl="cuda")
+        ref = ops.batch_similarity(qs, x, metric, impl="ref")
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        e["batch_similarity_many"] = float((got - ref).abs().max())
+        del got, ref
+        for W in (64, 256, 1024):
+            ids, scores, Ks, eps = tie_free_prefixes(
+                torch, sim, x, B, W, metric, seed + W, device)
+            adj_k = ops.pairwise_adjacency_batch(x, ids, eps, metric,
+                                                 impl="cuda")
+            adj_r = ops.pairwise_adjacency_batch(x, ids, eps, metric,
+                                                 impl="ref")
+            if not torch.equal(adj_k, adj_r):
+                raise AssertionError(f"adjacency differs ({metric}, W={W}): "
+                                     f"{int((adj_k != adj_r).sum())} edges")
+            valid = ids >= 0
+            gk = ops.greedy_diversify_batch(scores, adj_r, k, valid, impl="cuda")
+            gr = ops.greedy_diversify_batch(scores, adj_r, k, valid, impl="ref")
+            if not (torch.equal(gk[0], gr[0]) and torch.equal(gk[1], gr[1])):
+                raise AssertionError(f"greedy differs ({metric}, W={W})")
+            fk = ops.fused_round_batch(x, ids, scores, Ks, eps, k, metric,
+                                       impl="cuda")
+            fr = ops.fused_round_batch(x, ids, scores, Ks, eps, k, metric,
+                                       impl="ref")
+            for a, b in zip(fk[:3], fr[:3]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"fused round differs ({metric}, W={W})")
+            torch.testing.assert_close(fk[3], fr[3], rtol=RTOL, atol=ATOL)
+            e[f"fused_round_W{W}"] = float(
+                (fk[3] - fr[3]).abs().nan_to_num(0.0).max())
+            e[f"edges_W{W}"] = int(adj_r.sum())
+        errs[metric] = e
+        log(f"kernels ok   {metric}: " + json.dumps(e))
+    report["kernel_errors"] = errs
+
+    # times at the main path's shapes, l2
+    ids, scores, Ks, eps = tie_free_prefixes(torch, sim, x, B, 1024, "l2",
+                                             seed + 7, device)
+    adj = ops.pairwise_adjacency_batch(x, ids, eps, "l2", impl="ref")
+    valid = ids >= 0
+    W = ids.shape[1]
+    # the work each function needs on this data: adjacency, the sims of
+    # the valid pairs (one triangle: sim is symmetric); greedy, the k picked
+    # adjacency rows; the fused round, the picked rows of G^eps over each
+    # lane's valid prefix (Ks)
+    nv = valid.sum(1).to(torch.int64)
+    pairs = int((nv * (nv - 1) // 2).sum())
+    picks_g = ops.greedy_diversify_batch(scores, adj, k, valid,
+                                         impl="ref")[1].to(torch.int64)
+    in_prefix = valid & (torch.arange(W, device=device)[None, :]
+                         < Ks[:, None])
+    npre = in_prefix.sum(1).to(torch.int64)
+    picks_f = ops.fused_round_batch(x, ids, scores, Ks, eps, k, "l2",
+                                    impl="ref")[2].to(torch.int64)
+    t = {}
+
+    def row(name, fn_k, fn_p, fn_lib, nbytes, flops, replaces, source,
+            max_err):
+        ms, pms = time_ms(torch, fn_k), time_ms(torch, fn_p, reps=5)
+        lib = None if fn_lib is None else time_ms(torch, fn_lib)
+        bms, by = bound_ms(nbytes, flops)
+        t[name] = dict(name=name, route="cuda", source=source,
+                       replaces=replaces, ms=ms, plain_ms=pms, bound_ms=bms,
+                       bound_by=by, library_ms=lib, max_abs_err=max_err)
+        log(f"time {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), library {lib}")
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    maxerr = {name: max(errs[m][name] for m in errs)
+              for name in ("batch_similarity_many", "batch_similarity_gather")}
+    row("batch_similarity_many",
+        lambda: ops.batch_similarity(qs, x, "l2", impl="cuda"),
+        lambda: ops.batch_similarity(qs, x, "l2", impl="ref"),
+        lambda: torch.cdist(qs, x),
+        4 * (n * d + B * d + B * n), 2 * B * n * d,
+        "src/repro/kernels/batch_similarity.py:51",
+        csrc + "batch_similarity.cu", maxerr["batch_similarity_many"])
+    row("batch_similarity_gather",
+        lambda: ops.batch_similarity_gather(qs, x, nbrs, "l2", impl="cuda"),
+        lambda: ops.batch_similarity_gather(qs, x, nbrs, "l2", impl="ref"),
+        None, 4 * (B * M * d + B * d + 2 * B * M), 2 * B * M * d,
+        "src/repro/kernels/batch_similarity.py:51",
+        csrc + "batch_similarity.cu", maxerr["batch_similarity_gather"])
+    row("pairwise_adjacency",
+        lambda: ops.pairwise_adjacency_batch(x, ids, eps, "l2", impl="cuda"),
+        lambda: ops.pairwise_adjacency_batch(x, ids, eps, "l2", impl="ref"),
+        None, 4 * (int(nv.sum()) * d + B * W + B) + B * W * W,
+        2 * pairs * d,
+        "src/repro/kernels/pairwise_adjacency.py:46",
+        csrc + "pairwise_adjacency.cu", 0.0)
+    row("greedy_diversify",
+        lambda: ops.greedy_diversify_batch(scores, adj, k, valid, impl="cuda"),
+        lambda: ops.greedy_diversify_batch(scores, adj, k, valid, impl="ref"),
+        None, 4 * B * W + B * W + int(picks_g.sum()) * W + 4 * B * k,
+        int(picks_g.sum()) * W,
+        "src/repro/kernels/greedy_diversify.py:64",
+        csrc + "greedy_diversify.cu", 0.0)
+    row("fused_round",
+        lambda: ops.fused_round_batch(x, ids, scores, Ks, eps, k, "l2",
+                                      impl="cuda"),
+        lambda: ops.fused_round_batch(x, ids, scores, Ks, eps, k, "l2",
+                                      impl="ref"),
+        None, 4 * (int(npre.sum()) * (d + 2) + 2 * B + 2 * B * k),
+        2 * int((picks_f * npre).sum()) * d,
+        "src/repro/kernels/fused_round.py:99",
+        csrc + "fused_round.cu",
+        max(errs[m][f"fused_round_W{w}"] for m in errs for w in (64, 256, 1024)))
+    return t
+
+
+# ------------------------------------------------------------- phase 4 ----
+
+class StageTimer:
+    """Wall time of the engine's stages, each closed by a device sync."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seconds: dict[str, float] = {}
+
+    def wrap(self, module, attr, stage):
+        fn = getattr(module, attr)
+        torch = self.torch
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds[stage] = self.seconds.get(stage, 0.0) + (
+                time.perf_counter() - t0)
+            return out
+
+        setattr(module, attr, timed)
+
+
+def profile_batch(torch, tbp, ops, graph, qs, eps, batch_wall_s):
+    """The lockstep batch again under torch.profiler: the device's busy
+    share of that batch's unprofiled wall time, kernels per burst step, top
+    kernels. Device activity only: a host-op trace of ~100 ops per burst
+    step takes minutes to parse."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tbp.batch_pss(graph, qs, K, eps, ef=EF, kernel_impl="auto")
+        torch.cuda.synchronize()
+    steps = ops.launch_counts()["batch_similarity_gather"]
+    t0 = time.perf_counter()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    log(f"profile parsed in {time.perf_counter() - t0:.1f} s")
+    busy_us = sum(e.device_time_total for e in kernels)
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = dict(device_kernels=len(kernels), burst_steps=steps,
+               kernels_per_step=len(kernels) / max(steps, 1),
+               device_busy_s=busy_us / 1e6, batch_wall_s=batch_wall_s,
+               device_idle_share=(1.0 - busy_us / 1e6 / batch_wall_s
+                                  if busy_us else None),
+               top_kernels_s=[(name[:80], us / 1e6) for name, us in top])
+    log("profile of the lockstep batch: " + json.dumps(out))
+    return out
+
+
+def serve(torch, tbp, engine, qs, eps):
+    """Continuous batching over the engine's lanes: a free lane takes the
+    next query, every occupied lane advances one round per step, finished
+    lanes are harvested and recycled. Returns each query's result and its
+    latency from admission to harvest."""
+    from repro_torch.core.backend import LaneRequest
+
+    pending = list(range(len(qs)))
+    lane_query: dict[int, int] = {}
+    admitted: dict[int, float] = {}
+    results: list = [None] * len(qs)
+    latency = [0.0] * len(qs)
+    while pending or engine.active_count():
+        for lane in engine.free_lanes():
+            if not pending:
+                break
+            i = pending.pop(0)
+            engine.admit(int(lane), LaneRequest(qs[i], K, eps, ef=EF))
+            lane_query[int(lane)] = i
+            admitted[i] = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        for lane, res in engine.harvest():
+            i = lane_query.pop(lane)
+            results[i], latency[i] = res, now - admitted[i]
+            engine.recycle(lane)
+    return results, latency
+
+
+def main_path(torch, args, report, device):
+    from repro_torch.core import batch_progressive as tbp
+    from repro_torch.core import similarity as sim
+    from repro_torch.index import flat
+    from repro_torch.kernels import ops
+
+    n, nq = args.n, args.queries
+    allx = deep_like(torch, n + nq, D, args.seed, device)
+    x_np = allx[:n].cpu().numpy()
+    qs = allx[n:].cpu().numpy()
+    build_timer = StageTimer(torch)
+    for attr in ("_exact_knn", "_alpha_prune", "_add_reverse_edges",
+                 "_stitch_components", "_directed_repair"):
+        build_timer.wrap(flat, attr, attr.lstrip("_"))
+    t0 = time.perf_counter()
+    graph = flat.build_knn_graph(x_np, metric="l2", M=M_GRAPH, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"graph: n={n} d={D} M={M_GRAPH} built on the card in {build_s:.1f} s: "
+        + json.dumps({k: round(v, 1) for k, v in build_timer.seconds.items()}))
+
+    # eps at an expected G^eps degree of PHI: (n-1) * P(sim > eps)
+    g = torch.Generator(device=device).manual_seed(args.seed + 1)
+    m = 4096
+    a = graph.vectors[torch.randint(0, n, (m,), generator=g, device=device)]
+    b = graph.vectors[torch.randint(0, n, (m,), generator=g, device=device)]
+    s = sim.pairwise_sim(a, b, "l2").flatten()
+    rank = int(math.ceil((1.0 - PHI / (n - 1)) * s.numel()))
+    eps = float(torch.kthvalue(s.cpu(), max(1, min(rank, s.numel()))).values)
+    log(f"eps = {eps:.6f} (expected G^eps degree {PHI})")
+
+    timer = StageTimer(torch)
+    timer.wrap(tbp, "_batched_search_loop", "burst")
+    timer.wrap(tbp, "_rebuild_lanes", "rebuild")
+    timer.wrap(tbp, "_batched_adjacency", "adjacency")
+    timer.wrap(tbp, "_batched_div_astar", "div_astar")
+    timer.wrap(tbp.kops, "fused_round_batch", "fused_round")
+
+    # the main path: prewarm the serving engine, then serve every query
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = tbp.ProgressiveEngine(graph, num_lanes=LANES, max_k=K,
+                                   default_ef=EF, kernel_impl="auto")
+    engine.prewarm(max_capacity=1024, ks=(K,), widths=(64,))
+    torch.cuda.synchronize()
+    prewarm_s = time.perf_counter() - t0
+    prewarm_launches = ops.launch_counts()
+    timer.seconds.clear()
+    t_all = time.perf_counter()
+    results, lat = serve(torch, tbp, engine, qs, eps)
+    total_s = time.perf_counter() - t_all
+    launches = ops.launch_counts()
+    stage_s = dict(timer.seconds)
+    log("launches on the main path (prewarm + serving): "
+        + json.dumps(launches) + "; of them in prewarm: "
+        + json.dumps(prewarm_launches))
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+
+    ids = torch.as_tensor(np.stack([r.ids for r in results]), device=device)
+    cert = [bool(r.stats.certified) for r in results]
+    if ids.shape != (nq, K):
+        raise AssertionError(f"result shape {tuple(ids.shape)}")
+    if bool(((ids < -1) | (ids >= n)).any()):
+        raise AssertionError("ids out of range")
+    if not all(np.isfinite(r.scores).all() for r in results):
+        raise AssertionError("non-finite scores")
+    # diversity: no two returned ids are G^eps neighbours (the kernels'
+    # own arithmetic, sim.cuh's order, which dot_seq reproduces)
+    valid = ids >= 0
+    rows = graph.vectors[ids.clamp(min=0).long()]
+    pair = sim.query_sim(rows[:, :, None, :], rows[:, None, :, :], "l2")
+    off = ~torch.eye(K, dtype=torch.bool, device=device)
+    bad = (pair > eps) & off & valid[:, :, None] & valid[:, None, :]
+    if bool(bad.any()):
+        raise AssertionError(f"{int(bad.sum())} result pairs violate sim < eps")
+    dup = (ids[:, :, None] == ids[:, None, :]) & off & valid[:, :, None]
+    if bool(dup.any()):
+        raise AssertionError("duplicate ids in a result")
+
+    # the lockstep entry point on the kernels, then on the plain versions:
+    # the same ids and certificates as the continuously served lanes
+    def same(res, first, what):
+        got = np.stack([r.ids for r in results[:first]])
+        got_cert = np.array(cert[:first])
+        if not (np.array_equal(res.ids, got)
+                and np.array_equal(res.stats.certified, got_cert)):
+            raise AssertionError(f"{what} differs from the engine:\n{got}"
+                                 f"\n{res.ids}")
+
+    tl = time.perf_counter()
+    lock = tbp.batch_pss(graph, qs[:LANES], K, eps, ef=EF, kernel_impl="auto")
+    torch.cuda.synchronize()
+    lockstep_s = time.perf_counter() - tl
+    same(lock, LANES, "lockstep batch_pss")
+    tr = time.perf_counter()
+    ref = tbp.batch_pss(graph, qs[:RERUN], K, eps, ef=EF, kernel_impl="ref")
+    rerun_s = time.perf_counter() - tr
+    same(ref, RERUN, "plain-version rerun")
+    profile = profile_batch(torch, tbp, ops, graph, qs[:LANES], eps,
+                            batch_wall_s=lockstep_s)
+    lat_sorted = sorted(lat)
+    summary = dict(
+        n=n, d=D, M=M_GRAPH, k=K, ef=EF, lanes=LANES, queries=nq,
+        eps=eps, phi=PHI, graph_build_s=build_s,
+        graph_build_stage_s=build_timer.seconds, prewarm_s=prewarm_s,
+        total_s=total_s, qps=nq / total_s, p50_s=lat_sorted[nq // 2],
+        p99_s=lat_sorted[min(nq - 1, int(math.ceil(0.99 * nq)) - 1)],
+        certified_share=sum(cert) / nq, stage_s=stage_s,
+        launches=launches, prewarm_launches=prewarm_launches,
+        lockstep_s=lockstep_s, lockstep_queries=LANES,
+        rerun_ref_s=rerun_s, rerun_queries=RERUN, profile=profile,
+        expansions=[int(r.stats.expansions) for r in results])
+    report["main_path"] = summary
+    log("main path: " + json.dumps({k: v for k, v in summary.items()
+                                    if k != "expansions"}))
+    return launches
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--n", type=int, default=1_000_000)
+    p.add_argument("--queries", type=int, default=64)
+    args = p.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.core import similarity as sim
+    from repro_torch.kernels import _build, ops
+
+    os.makedirs(OUT, exist_ok=True)
+    report: dict = {"argv": sys.argv[1:]}
+    smi = smi_line()
+    log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+    report["nvidia_smi"] = smi
+
+    t0 = time.perf_counter()
+    per_source = _build.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"kernel build: {build_s:.1f} s wall, per source "
+        + json.dumps({k: round(v, 1) for k, v in per_source.items()}))
+    with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
+        for name, text in _build.build_logs.items():
+            f.write(f"=== {name}\n{text}\n")
+    report["build_s"] = build_s
+
+    device = torch.device("cuda")
+    x = deep_like(torch, args.n, D, args.seed + 100, device)
+    qs = deep_like(torch, LANES, D, args.seed + 101, device)
+    timings = check_kernels(torch, ops, sim, x, qs, args.seed, report)
+    del x
+    torch.cuda.empty_cache()
+
+    launches = main_path(torch, args, report, device)
+    kernels = []
+    for name, row in timings.items():
+        kernels.append(dict(row, launches=int(launches[name])))
+    report["kernels"] = kernels
+    with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,156 @@
+"""Public kernel entry points with backend dispatch (port of ``repro.kernels.ops``).
+
+impl resolution, at call time:
+  * "auto" (default): the CUDA kernel when the tensors lie on a CUDA device,
+    the plain PyTorch oracle otherwise.
+  * "cuda": the hand-written CUDA kernel; raises on a CPU tensor.
+  * "ref": the plain PyTorch oracle (``kernels/ref.py``) on any device.
+
+Nothing falls back quietly: a kernel that fails to build or launch raises.
+This slice ports the four ops of the main path in the batched forms the
+engine calls; the single-lane ``pairwise_adjacency`` / ``greedy_diversify``
+(for the per-query drivers), ``topk_merge`` and the quantized scorers come
+with later slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.batch_similarity import sim_gather_cuda, sim_many_cuda
+from repro_torch.kernels.fused_round import fused_round_cuda
+from repro_torch.kernels.greedy_diversify import greedy_cuda
+from repro_torch.kernels.pairwise_adjacency import adjacency_raw_cuda
+
+_DEFAULT_IMPL = None  # overridable via set_default_impl
+_IMPLS = ("auto", "ref", "cuda")
+
+
+def set_default_impl(impl: str | None) -> None:
+    """Set the process-wide default backend (None restores "auto")."""
+    if impl is not None and impl not in _IMPLS:
+        raise ValueError(
+            f"unknown kernel impl {impl!r}; expected one of {_IMPLS} or None")
+    global _DEFAULT_IMPL
+    _DEFAULT_IMPL = impl
+
+
+def resolve(impl: str | None, t: torch.Tensor) -> str:
+    """The rung an op runs on for tensor ``t``: "ref" or "cuda"."""
+    if impl is None:
+        impl = _DEFAULT_IMPL or "auto"
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown kernel impl {impl!r}; expected one of {_IMPLS}")
+    if impl == "auto":
+        return "cuda" if t.is_cuda else "ref"
+    return impl
+
+
+#: every kernel wrapper of this slice, by the name its launches are kept under
+KERNELS = {"batch_similarity_many": sim_many_cuda,
+           "batch_similarity_gather": sim_gather_cuda,
+           "pairwise_adjacency": adjacency_raw_cuda,
+           "greedy_diversify": greedy_cuda,
+           "fused_round": fused_round_cuda}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel wrapper since the last ``reset_launch_counts``."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def batch_similarity(q: torch.Tensor, x: torch.Tensor, metric: str,
+                     impl: str | None = None) -> torch.Tensor:
+    """sim(q[d], x[n, d]) -> f32[n]; q[B, d] scores each lane's query in
+    turn -> f32[B, n] (the reduce form, batch-invariant on both rungs)."""
+    if resolve(impl, x) == "ref":
+        return _ref.batch_similarity(q, x, metric)
+    out = sim_many_cuda(_f32(q.reshape(-1, q.shape[-1])), _f32(x), metric)
+    return out[0] if q.dim() == 1 else out
+
+
+def batch_similarity_many(qs: torch.Tensor, x: torch.Tensor, metric: str,
+                          impl: str | None = None) -> torch.Tensor:
+    """sim(qs[b, d], x[n, d]) -> f32[b, n]."""
+    if resolve(impl, x) == "ref":
+        return _ref.batch_similarity_many(qs, x, metric)
+    return sim_many_cuda(_f32(qs), _f32(x), metric)
+
+
+def batch_similarity_gather(qs: torch.Tensor, x: torch.Tensor,
+                            ids: torch.Tensor, metric: str,
+                            impl: str | None = None) -> torch.Tensor:
+    """sim(qs[b], x[max(ids[b, m], 0)]) -> f32[B, M]: each lane's query
+    against its own gathered rows (the burst's neighbour scoring)."""
+    if resolve(impl, x) == "ref":
+        return _ref.batch_similarity_gather(qs, x, ids, metric)
+    return sim_gather_cuda(_f32(qs), _f32(x), _i32(ids), metric)
+
+
+def pairwise_adjacency_batch(vectors: torch.Tensor, ids: torch.Tensor, eps,
+                             metric: str, impl: str | None = None) -> torch.Tensor:
+    """Per-lane G^eps adjacency bool[G, W, W] among each lane's candidate
+    ids[G, W] (-1 = padding, masked out; no diagonal); ``eps`` f32[G]."""
+    eps = torch.as_tensor(eps, dtype=torch.float32, device=vectors.device)
+    eps = eps.expand(ids.shape[0]).contiguous()
+    valid = ids >= 0
+    if resolve(impl, vectors) == "ref":
+        x = vectors[ids.clamp(min=0).long()]
+        return _ref.pairwise_adjacency(x, eps[:, None, None], metric, valid)
+    return _ref.strip_adjacency(
+        adjacency_raw_cuda(_f32(vectors), _i32(ids), eps, metric), valid)
+
+
+def greedy_diversify_batch(scores: torch.Tensor, adj: torch.Tensor, k: int,
+                           valid: torch.Tensor | None = None,
+                           impl: str | None = None):
+    """Batched greedy selection. scores (B, K), adj (B, K, K), valid (B, K)
+    or None. Returns (sel int32[B, k] local idx -1-padded, count int32[B])."""
+    s = scores if valid is None else torch.where(valid, scores, float("-inf"))
+    if resolve(impl, scores) == "ref":
+        return _ref.greedy_diversify(s, adj, k)
+    sel = greedy_cuda(_f32(s), adj.contiguous(), k)
+    return sel, torch.sum(sel >= 0, dim=1).to(torch.int32)
+
+
+def fused_round_batch(vectors: torch.Tensor, ids, scores, Ks, eps, k: int,
+                      metric: str, impl: str | None = None):
+    """One fused progressive round over a lane batch.
+
+    vectors (n, d) corpus, ids int32 (B, W) raw sorted queue prefixes (-1
+    sentinels), scores f32 (B, W) (-inf sentinels), Ks (B,) per-lane
+    candidate budgets, eps f32 (B,) per-lane thresholds.
+
+    Returns ``(sel_ids int32[B, k] global ids -1-padded, sel_scores f32[B, k]
+    zero-padded, count int32[B], cert f32[B, 2] = (total, s_K))``. On the
+    kernel rung the kernel returns local picks and their scores; the global
+    ids, count and certificate are derived here, outside it, as the
+    reference does (``repro/kernels/ops.py:202-216``).
+    """
+    dev = vectors.device
+    ids = torch.as_tensor(ids, device=dev).to(torch.int32)
+    scores = torch.as_tensor(scores, device=dev).to(torch.float32)
+    Ks = torch.as_tensor(Ks, device=dev).to(torch.int32)
+    eps = torch.as_tensor(eps, device=dev).to(torch.float32)
+    if resolve(impl, vectors) == "ref":
+        return _ref.fused_round(vectors, ids, scores, Ks, eps, k, metric)
+    sel, selsc = fused_round_cuda(_f32(vectors), ids.contiguous(),
+                                  scores.contiguous(), Ks.contiguous(),
+                                  eps.contiguous(), k, metric)
+    ids_m, scores_m = _ref.mask_prefix(ids, scores, Ks)
+    sel_ids, _ = _ref.extract_round(sel, ids_m, scores_m)
+    count = torch.sum(sel >= 0, dim=1).to(torch.int32)
+    return sel_ids, selsc, count, _ref.certificate(selsc, ids_m, scores_m)

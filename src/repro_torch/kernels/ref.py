@@ -1,0 +1,136 @@
+"""Plain PyTorch versions of the port's kernels: the port's oracle.
+
+Port of ``repro.kernels.ref`` for the four ops of the main path, composed as
+the reference composes them. Each takes optional leading lane axes where the
+reference is vmapped. The CUDA kernels are held against these on the card;
+on a CPU tensor ``kernels.ops`` runs these and nothing else. ``topk_merge``,
+``int8_similarity_many`` and ``pq_similarity_many`` come with the slices
+that port their kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.similarity import pairwise_sim, query_sim
+
+
+def batch_similarity(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
+    """Scores of rows of x[n, d] against query q[d] -> f32[n]; for q[B, d],
+    each lane's ``query_sim`` in turn -> f32[B, n] (the reference vmaps it)."""
+    if q.dim() == 1:
+        return query_sim(q, x, metric)
+    return torch.stack([query_sim(qi, x, metric) for qi in q])
+
+
+def batch_similarity_many(qs: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
+    """Scores of rows of x[n, d] against queries qs[b, d] -> f32[b, n]."""
+    return pairwise_sim(qs, x, metric)
+
+
+def batch_similarity_gather(qs: torch.Tensor, x: torch.Tensor,
+                            ids: torch.Tensor, metric: str) -> torch.Tensor:
+    """scores[b, m] = query_sim(qs[b], x[max(ids[b, m], 0)]) -> f32[B, M]:
+    the burst's per-lane scoring of gathered neighbour rows."""
+    return query_sim(qs[:, None, :], x[ids.clamp(min=0).long()], metric)
+
+
+def pairwise_adjacency(x: torch.Tensor, eps, metric: str,
+                       valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Diversity-graph adjacency (paper Def. 2): A[i, j] = sim(x_i, x_j) > eps.
+
+    ``x`` [..., K, d]; ``eps`` a scalar or a tensor broadcasting against
+    [..., K, K]. Diagonal is False; ``valid`` [..., K] masks padding rows.
+    """
+    return strip_adjacency(pairwise_sim(x, x, metric) > eps, valid)
+
+
+def strip_adjacency(raw: torch.Tensor,
+                    valid: torch.Tensor | None = None) -> torch.Tensor:
+    """A thresholded Gram [..., K, K] as an adjacency: no diagonal, and no
+    edge at a padding row or column (``valid`` [..., K] False)."""
+    k = raw.shape[-1]
+    adj = raw.to(torch.bool) & ~torch.eye(k, dtype=torch.bool, device=raw.device)
+    if valid is not None:
+        adj = adj & valid[..., :, None] & valid[..., None, :]
+    return adj
+
+
+def greedy_diversify(scores: torch.Tensor, adj: torch.Tensor, k: int,
+                     valid: torch.Tensor | None = None):
+    """Greedy diverse selection (paper §II-B-2) over a scored candidate tile.
+
+    scores [..., K], adj bool [..., K, K]. At each of k steps pick the
+    highest scoring non-banned candidate (lowest index on ties), then ban its
+    diversity-graph neighbours. Returns (sel int32[..., k] local indices,
+    -1 padded; count int32[...]).
+    """
+    K = scores.shape[-1]
+    ar = torch.arange(K, device=scores.device)
+    banned = (torch.zeros_like(scores, dtype=torch.bool) if valid is None
+              else ~valid)
+    count = torch.zeros(scores.shape[:-1], dtype=torch.int32,
+                        device=scores.device)
+    picks = []
+    for _ in range(k):
+        avail = torch.where(banned, float("-inf"), scores)
+        j = torch.argmax(avail, dim=-1, keepdim=True)
+        ok = (~torch.gather(banned, -1, j)
+              & torch.isfinite(torch.gather(avail, -1, j)))[..., 0]
+        row = torch.gather(adj, -2, j[..., None].expand(*j.shape[:-1], 1, K))
+        new_banned = banned | row[..., 0, :] | (ar == j)
+        banned = torch.where(ok[..., None], new_banned, banned)
+        picks.append(torch.where(ok, j[..., 0], -1).to(torch.int32))
+        count = count + ok.to(torch.int32)
+    sel = (torch.stack(picks, -1) if picks else
+           torch.empty((*scores.shape[:-1], 0), dtype=torch.int32,
+                       device=scores.device))
+    return sel, count
+
+
+def fused_round(vectors: torch.Tensor, ids: torch.Tensor, scores: torch.Tensor,
+                Ks: torch.Tensor, eps: torch.Tensor, k: int, metric: str):
+    """Every lane's fused progressive-round stage (semantic ground truth).
+
+    ``ids``/``scores`` [B, W] are raw sorted queue prefix rows (-1 / -inf
+    sentinels), ``Ks`` [B] each lane's candidate budget (positions >= K are
+    masked off), ``eps`` [B] each lane's threshold. Composes prefix masking,
+    candidate gather, eps-adjacency, greedy selection and output extraction.
+
+    Returns ``(sel_ids int32[B, k] global ids -1-padded, sel_scores f32[B, k]
+    zero-padded, count int32[B], cert f32[B, 2] = (total, s_K))``.
+    """
+    ids_m, scores_m = mask_prefix(ids, scores, Ks)
+    valid = ids_m >= 0
+    x = vectors[ids_m.clamp(min=0).long()]
+    adj = pairwise_adjacency(x, eps[:, None, None], metric, valid)
+    sel, count = greedy_diversify(scores_m, adj, k, valid)
+    sel_ids, sel_scores = extract_round(sel, ids_m, scores_m)
+    return sel_ids, sel_scores, count, certificate(sel_scores, ids_m, scores_m)
+
+
+def mask_prefix(ids: torch.Tensor, scores: torch.Tensor, Ks: torch.Tensor):
+    """Queue prefix rows [B, W] cut to each lane's budget Ks [B]: positions
+    >= Ks[b] become the id=-1 / -inf sentinels."""
+    keep = torch.arange(ids.shape[-1], device=ids.device)[None, :] < Ks[:, None]
+    return torch.where(keep, ids, -1), torch.where(keep, scores, float("-inf"))
+
+
+def extract_round(sel: torch.Tensor, ids_m: torch.Tensor,
+                  scores_m: torch.Tensor):
+    """Global ids and scores of the picks (-1 / 0 where no pick)."""
+    picked = sel >= 0
+    gidx = sel.clamp(min=0).long()
+    sel_ids = torch.where(picked, torch.gather(ids_m, 1, gidx), -1)
+    sel_scores = torch.where(picked, torch.gather(scores_m, 1, gidx), 0.0)
+    return sel_ids.to(torch.int32), sel_scores.to(torch.float32)
+
+
+def certificate(sel_scores: torch.Tensor, ids_m: torch.Tensor,
+                scores_m: torch.Tensor) -> torch.Tensor:
+    """Theorem-2 inputs per lane: (total of the picked scores, s_K the worst
+    kept candidate score, -inf for an empty prefix) -> f32[B, 2]."""
+    valid = ids_m >= 0
+    total = torch.sum(sel_scores, dim=1)
+    s_K = torch.min(torch.where(valid, scores_m, float("inf")), dim=1).values
+    s_K = torch.where(valid.any(dim=1), s_K, float("-inf"))
+    return torch.stack([total, s_K], dim=1)

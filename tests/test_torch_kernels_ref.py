@@ -1,0 +1,202 @@
+"""repro_torch.kernels.ops (ref rung, CPU) against repro.kernels.ops at
+impl="ref", the dispatch ladder, and — on a machine with a card — each CUDA
+kernel against its plain version."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.batch_progressive import _batched_adjacency
+from repro.kernels import ops as jops
+from repro_torch.core import similarity as tsim
+from repro_torch.kernels import ops as tops
+
+# tiny tensors: one intra-op thread keeps parallel test workers from
+# oversubscribing the cores
+torch.set_num_threads(1)
+
+RTOL = ATOL = 1e-5
+METRICS = ["l2", "ip", "cos"]
+# thresholds that give the d=24 test corpus a few percent of edges
+EPS = {"l2": -5.0, "ip": 2.0, "cos": 0.1}
+
+
+def _corpus(seed=0, n=300, d=24):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, d))).astype(np.float32)
+
+
+def _prefixes(x, metric, B=4, W=64, seed=1):
+    """Raw sorted queue prefixes: distinct ids by score desc, -1/-inf tail."""
+    rng = np.random.default_rng(seed)
+    n = x.shape[0]
+    ids = np.full((B, W), -1, np.int32)
+    scores = np.full((B, W), -np.inf, np.float32)
+    for b in range(B):
+        m = int(rng.integers(W // 2, W + 1))
+        pick = rng.choice(n, m, replace=False)
+        s = rng.normal(size=m).astype(np.float32)
+        order = np.argsort(-s, kind="stable")
+        ids[b, :m], scores[b, :m] = pick[order], s[order]
+    Ks = rng.integers(1, W + 1, B)
+    eps = EPS[metric] + rng.normal(size=B).astype(np.float32) * 0.05
+    return ids, scores, Ks, eps.astype(np.float32)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_batch_similarity_ops_match_reference(metric):
+    x = _corpus()
+    qs = _corpus(5, n=3)
+    xt, qt = torch.from_numpy(x), torch.from_numpy(qs)
+    for i in range(3):
+        ref = np.asarray(jops.batch_similarity(jnp.asarray(qs[i]), jnp.asarray(x),
+                                               metric, impl="ref"))
+        np.testing.assert_allclose(tops.batch_similarity(qt[i], xt, metric).numpy(),
+                                   ref, rtol=RTOL, atol=ATOL)
+    lanes = tops.batch_similarity(qt, xt, metric).numpy()
+    for i in range(3):  # the lane form is each lane's own call, bit for bit
+        np.testing.assert_array_equal(
+            lanes[i], tops.batch_similarity(qt[i], xt, metric).numpy())
+    ref_many = np.asarray(jops.batch_similarity_many(
+        jnp.asarray(qs), jnp.asarray(x), metric, impl="ref"))
+    np.testing.assert_allclose(tops.batch_similarity_many(qt, xt, metric).numpy(),
+                               ref_many, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_batch_similarity_gather_matches_per_lane_reference(metric):
+    x = _corpus()
+    qs = _corpus(6, n=4)
+    ids = np.random.default_rng(2).integers(-1, x.shape[0], (4, 16)).astype(np.int32)
+    got = tops.batch_similarity_gather(torch.from_numpy(qs), torch.from_numpy(x),
+                                       torch.from_numpy(ids), metric).numpy()
+    for b in range(4):
+        ref = np.asarray(jops.batch_similarity(
+            jnp.asarray(qs[b]), jnp.asarray(x[np.maximum(ids[b], 0)]), metric,
+            impl="ref"))
+        np.testing.assert_allclose(got[b], ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_pairwise_adjacency_batch_matches_reference(metric):
+    x = _corpus()
+    ids, _, _, eps = _prefixes(x, metric)
+    ref = np.asarray(_batched_adjacency(jnp.asarray(x), jnp.asarray(ids),
+                                        jnp.asarray(eps), metric))
+    got = tops.pairwise_adjacency_batch(torch.from_numpy(x), torch.from_numpy(ids),
+                                        torch.from_numpy(eps), metric).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert 0 < got.sum() < got.size // 2
+
+
+def test_greedy_diversify_matches_reference():
+    x = _corpus()
+    ids, scores, _, eps = _prefixes(x, "l2", B=5)
+    adj = tops.pairwise_adjacency_batch(torch.from_numpy(x), torch.from_numpy(ids),
+                                        torch.from_numpy(eps), "l2")
+    valid = ids >= 0
+    for k in (1, 5, 10):
+        sel, cnt = tops.greedy_diversify_batch(torch.from_numpy(scores), adj, k,
+                                               valid=torch.from_numpy(valid))
+        jsel, jcnt = jops.greedy_diversify_batch(
+            jnp.asarray(scores), jnp.asarray(adj.numpy()), k,
+            valid=jnp.asarray(valid), impl="ref")
+        np.testing.assert_array_equal(sel.numpy(), np.asarray(jsel))
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+        for b in range(scores.shape[0]):  # each lane as the single-lane op
+            js1, jc1 = jops.greedy_diversify(jnp.asarray(scores[b]),
+                                             jnp.asarray(adj[b].numpy()), k,
+                                             jnp.asarray(valid[b]), impl="ref")
+            np.testing.assert_array_equal(sel[b].numpy(), np.asarray(js1))
+            assert int(cnt[b]) == int(jc1)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [5, 10])
+def test_fused_round_batch_matches_reference(metric, k):
+    x = _corpus()
+    ids, scores, Ks, eps = _prefixes(x, metric, B=6)
+    got = tops.fused_round_batch(torch.from_numpy(x), ids, scores, Ks, eps, k,
+                                 metric)
+    ref = jops.fused_round_batch(jnp.asarray(x), ids, scores, Ks, eps, k,
+                                 metric, impl="ref")
+    for g, r in zip(got[:3], ref[:3]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(ref[3]),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_ladder_names_and_no_hidden_fallback():
+    x = torch.from_numpy(_corpus(n=20))
+    with pytest.raises(ValueError):
+        tops.batch_similarity_many(x[:2], x, "l2", impl="pallas")
+    with pytest.raises(ValueError):
+        tops.set_default_impl("interpret")
+    # the kernel rung on a CPU tensor raises instead of quietly using ref
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tops.batch_similarity_many(x[:2], x, "l2", impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tops.fused_round_batch(x, np.zeros((1, 8), np.int32),
+                               np.zeros((1, 8), np.float32), [8], [0.0], 2,
+                               "l2", impl="cuda")
+    tops.set_default_impl("cuda")
+    try:
+        with pytest.raises(ValueError):
+            tops.batch_similarity(x[0], x, "l2")
+    finally:
+        tops.set_default_impl(None)
+    assert tops.resolve(None, x) == "ref"
+    tops.reset_launch_counts()
+    tops.batch_similarity(x[0], x, "l2")
+    assert sum(tops.launch_counts().values()) == 0
+
+
+# --------------------------------------------------------------- on the card --
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_kernels_match_plain_versions(cuda_device, metric):
+    x = torch.from_numpy(_corpus(n=2000, d=96)).to(cuda_device)
+    qs = torch.from_numpy(_corpus(3, n=16, d=96)).to(cuda_device)
+    ids_np, scores_np, Ks, _ = _prefixes(_corpus(n=2000, d=96), metric,
+                                         B=8, W=256)
+    ids = torch.from_numpy(ids_np).to(cuda_device)
+    scores = torch.from_numpy(scores_np).to(cuda_device)
+    # eps at each lane's 0.9 quantile of pair similarity: ~10% edges
+    rows = x[ids.clamp(min=0).long()]
+    eps = torch.quantile(tsim.pairwise_sim(rows, rows, metric).flatten(1),
+                         0.9, dim=1).contiguous()
+    # the kernels reduce in dot_seq's order: scores agree with the plain
+    # version bit for bit up to the metric transform's rounding
+    np.testing.assert_allclose(
+        tops.batch_similarity(qs, x, metric, impl="cuda").cpu(),
+        tops.batch_similarity(qs, x, metric, impl="ref").cpu(), rtol=RTOL,
+        atol=ATOL)
+    nb = ids.clamp(min=0)[:, :32].contiguous()
+    np.testing.assert_allclose(
+        tops.batch_similarity_gather(qs[:8], x, nb, metric, impl="cuda").cpu(),
+        tops.batch_similarity_gather(qs[:8], x, nb, metric, impl="ref").cpu(),
+        rtol=RTOL, atol=ATOL)
+    adj_k = tops.pairwise_adjacency_batch(x, ids, eps, metric, impl="cuda")
+    adj_r = tops.pairwise_adjacency_batch(x, ids, eps, metric, impl="ref")
+    assert torch.equal(adj_k, adj_r) and bool(adj_k.any())
+    valid = ids >= 0
+    for k in (5, 10):
+        gk = tops.greedy_diversify_batch(scores, adj_r, k, valid, impl="cuda")
+        gr = tops.greedy_diversify_batch(scores, adj_r, k, valid, impl="ref")
+        assert torch.equal(gk[0], gr[0]) and torch.equal(gk[1], gr[1])
+        fk = tops.fused_round_batch(x, ids, scores, Ks, eps, k, metric,
+                                    impl="cuda")
+        fr = tops.fused_round_batch(x, ids, scores, Ks, eps, k, metric,
+                                    impl="ref")
+        for a, b in zip(fk[:3], fr[:3]):
+            assert torch.equal(a, b)
+        np.testing.assert_allclose(fk[3].cpu(), fr[3].cpu(), rtol=RTOL,
+                                   atol=ATOL)
