@@ -27,6 +27,24 @@ Phases:
    serves the first 16 queries again on the kernels (and once more under
    ``torch.profiler``) and the first 8 on the plain versions: both must
    give the same ids and certificates as the engine.
+5. The compressed-corpus path on phase 4's corpus, graph and first 16
+   queries: the corpus quantized to int8 (8 rows per scale) and to PQ
+   (16 subspaces of 6 dims, 256 centroids, 10 k-means iterations on a
+   16 384-row sample), build times and bytes per vector; int8_dot and
+   pq_lut_sum against their plain versions (l2/ip/cos at 16 x n, and at a
+   ragged n = 100 003 with d = 30 and M = 5): integer dots and LUT sums,
+   and so the quantized scores, must be equal bit for bit. Then the path
+   itself: each scheme's ``quantized_similarity_many`` scores, a top-4k
+   prefilter (score desc, id asc) and an exact float rerank give
+   recall@5/@10 against the exact top-k (int8 held to 0.95); the first 4
+   queries rerun on the plain versions must give the same prefilter and
+   reranked ids; the queries' relative contrast (median over 10th-nearest
+   distance) is recorded beside. Last, ``batch_beam_search`` (k = 10,
+   L = 40) over phase 4's graph with each corpus (float, int8, PQ), its
+   frontier reranked in float: recall@10 and steps. The float beam's
+   first 4 queries rerun on the plain versions must give the same ids; its
+   recall@10 is recorded at L = 40, 100, 200 from the graph's entry and at
+   L = 40 from each query's true nearest node.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -49,10 +67,21 @@ OUT = os.path.join(HERE, "chiprun_out")
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12      # H100 SXM float32 outside the tensor cores
+PEAK_INT8_OP_S = 1979e12     # H100 SXM int8 tensor cores, dense
 RTOL = ATOL = 1e-5
 # the main path's configuration; only the data seed, the corpus size (the
 # stated cut, if one is needed) and the query count are arguments
 D, M_GRAPH, LANES, K, EF, PHI, RERUN = 96, 16, 16, 10, 40, 100.0, 8
+# phase 5: the compressed-corpus path (benchmarks/batch_bench.py
+# run_quantized's shape: a 4k prefilter, recall floor 0.95)
+SCALE_ROWS, PQ_ITERS, PREFILTER, KS, BEAM_L, RERUN_Q = 8, 10, 4, (5, 10), 40, 4
+BEAM_WIDER = (40, 100, 200)   # the float beam's recall against its width
+INT8_RECALL_FLOOR = 0.95
+RAGGED_N, RAGGED_D, RAGGED_M = 100_003, 30, 5
+# the kernels each path must launch
+PATH4_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
+                 "pairwise_adjacency", "greedy_diversify", "fused_round")
+PATH5_KERNELS = ("int8_dot", "pq_lut_sum")
 
 
 T0 = time.perf_counter()
@@ -69,8 +98,9 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
-    tb, tf = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_S
+def bound_ms(bytes_moved: float, ops: float,
+             peak_ops: float = PEAK_F32_FLOP_S) -> tuple[float, str]:
+    tb, tf = bytes_moved / PEAK_BYTES_PER_S, ops / peak_ops
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
@@ -398,7 +428,7 @@ def main_path(torch, args, report, device):
     log("launches on the main path (prewarm + serving): "
         + json.dumps(launches) + "; of them in prewarm: "
         + json.dumps(prewarm_launches))
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in PATH4_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
@@ -459,7 +489,260 @@ def main_path(torch, args, report, device):
     report["main_path"] = summary
     log("main path: " + json.dumps({k: v for k, v in summary.items()
                                     if k != "expansions"}))
-    return launches
+    return launches, graph, qs
+
+
+# ------------------------------------------------------------- phase 5 ----
+
+def synced(torch, fn):
+    """``fn()`` and its wall seconds, closed by a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_quantized_kernels(torch, quant, ops, corpora, qs, what):
+    """int8_dot and pq_lut_sum against their plain versions on ``corpora``
+    (int8, pq) for every metric, bit for bit, and the quantized scores of
+    the two rungs with them. Returns the largest difference seen (0.0)."""
+    from repro_torch.kernels.int8_similarity import int8_dot_cuda
+    from repro_torch.kernels.pq_lut_similarity import pq_lut_sum_cuda
+    from repro_torch.kernels.ref import int8_dot
+
+    c8, pq = corpora
+    qc, _ = quant.quantize_queries(qs)
+    got, ref = int8_dot_cuda(qc, c8.codes), int8_dot(qc, c8.codes)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"int8_dot differs ({what}): "
+                             f"{int((got != ref).sum())} dots")
+    err = {"int8_dot": float((got - ref).abs().max()), "pq_lut_sum": 0.0}
+    for metric in ("l2", "ip", "cos"):
+        T, S, _ = quant.pq_luts_many(qs, pq.codebooks, metric)
+        for table in (T, S[None].contiguous()):
+            got, ref = (pq_lut_sum_cuda(table, pq.codes),
+                        quant.pq_lut_sum(table, pq.codes))
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"pq_lut_sum differs ({what}, {metric}): "
+                    f"{int((got != ref).sum())} sums")
+            err["pq_lut_sum"] = max(err["pq_lut_sum"],
+                                    float((got - ref).abs().max()))
+        for name, corpus in (("int8", c8), ("pq", pq)):
+            got = ops.quantized_similarity_many(qs, corpus, metric, impl="cuda")
+            ref = ops.quantized_similarity_many(qs, corpus, metric, impl="ref")
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"quantized scores differ ({what}, {name}, {metric}): "
+                    f"max {float((got - ref).abs().max())}")
+    log(f"quantized kernels ok ({what}): " + json.dumps(err))
+    return err
+
+
+def compressed_path(torch, report, graph, qs_np, seed, device):
+    """Phase 5: the compressed-corpus path on phase 4's corpus and graph.
+    Returns the two kernels' rows and their launches on the path."""
+    from repro_torch import quant
+    from repro_torch.core import batch as tbatch
+    from repro_torch.core import beam_search as bs
+    from repro_torch.core import similarity as sim
+    from repro_torch.core.graph import make_flat_graph
+    from repro_torch.index import flat
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_similarity import int8_dot_cuda
+    from repro_torch.kernels.pq_lut_similarity import pq_lut_sum_cuda
+    from repro_torch.kernels.ref import int8_dot
+
+    x = graph.vectors
+    n, d = x.shape
+    qs = torch.as_tensor(qs_np, device=device)
+    b = qs.shape[0]
+    out: dict = {}
+
+    # (b) the corpus builds and what they store
+    c8, out["int8_build_s"] = synced(torch, lambda: quant.quantize_corpus(
+        x, "int8", scale_rows=SCALE_ROWS))
+    pq, out["pq_build_s"] = synced(torch, lambda: quant.quantize_corpus(
+        x, "pq", pq_iters=PQ_ITERS, seed=seed))
+    M, C = pq.codebooks.shape[:2]
+    out["bytes_per_vector"] = {
+        "float32": quant.corpus_bytes_per_vector(x),
+        "int8": quant.corpus_bytes_per_vector(c8),
+        "pq": quant.corpus_bytes_per_vector(pq)}
+    out["int8_compression"] = (out["bytes_per_vector"]["float32"]
+                               / out["bytes_per_vector"]["int8"])
+    log(f"compressed corpora: int8 {out['int8_build_s']:.2f} s, PQ (M={M}, "
+        f"C={C}) {out['pq_build_s']:.2f} s; bytes/vector "
+        + json.dumps(out["bytes_per_vector"]))
+
+    # (a) the kernels against their plain versions, at the path's shapes
+    # and at a ragged one
+    err = check_quantized_kernels(torch, quant, ops, (c8, pq), qs,
+                                  f"{b} x {n}, d={d}")
+    xr = deep_like(torch, RAGGED_N, RAGGED_D, seed + 200, device)
+    qr = deep_like(torch, b, RAGGED_D, seed + 201, device)
+    ragged = (quant.quantize_corpus(xr, "int8", scale_rows=SCALE_ROWS),
+              quant.quantize_corpus(xr, "pq", pq_m=RAGGED_M, seed=seed))
+    rerr = check_quantized_kernels(torch, quant, ops, ragged, qr,
+                                   f"{b} x {RAGGED_N}, d={RAGGED_D}, "
+                                   f"M={RAGGED_M}")
+    del xr, qr, ragged
+
+    qc, _ = quant.quantize_queries(qs)
+    T, _, _ = quant.pq_luts_many(qs, pq.codebooks, "l2")
+    lib = torch._int_mm(c8.codes, qc.t().contiguous())
+    if not torch.equal(lib.t(), int8_dot(qc, c8.codes)):
+        raise AssertionError("torch._int_mm disagrees with the exact dots")
+    # the LUT sum as one library call: embedding_bag's sum over the rows
+    # codes[n, m] + m * C of the tables laid out [M * C, b]
+    bag_idx = (pq.codes.long()
+               + torch.arange(M, device=device) * C).contiguous()
+    bag_w = T.reshape(b, M * C).t().contiguous()
+    bag = torch.nn.functional.embedding_bag
+    lib = bag(bag_idx, bag_w, mode="sum")
+    out["embedding_bag_max_abs_diff"] = float(
+        (lib.t() - quant.pq_lut_sum(T, pq.codes)).abs().max())
+    if not torch.allclose(lib.t(), quant.pq_lut_sum(T, pq.codes), rtol=RTOL,
+                          atol=ATOL):
+        raise AssertionError("embedding_bag disagrees with the LUT sums")
+    del lib
+    rows, whole = {}, {}
+    csrc = "src/repro_torch/kernels/csrc/"
+    for name, fn_k, fn_p, fn_lib, nbytes, nops, peak, replaces in (
+            ("int8_dot", lambda: int8_dot_cuda(qc, c8.codes),
+             lambda: int8_dot(qc, c8.codes),
+             lambda: torch._int_mm(c8.codes, qc.t().contiguous()),
+             n * d + b * d + 4 * b * n, 2 * b * n * d, PEAK_INT8_OP_S,
+             "src/repro/kernels/int8_similarity.py:34"),
+            ("pq_lut_sum", lambda: pq_lut_sum_cuda(T, pq.codes),
+             lambda: quant.pq_lut_sum(T, pq.codes),
+             lambda: bag(bag_idx, bag_w, mode="sum"),
+             n * M + 4 * b * M * C + 4 * b * n, b * n * (M - 1),
+             PEAK_F32_FLOP_S, "src/repro/kernels/pq_lut_similarity.py:47")):
+        ms, pms = time_ms(torch, fn_k), time_ms(torch, fn_p, reps=5)
+        lms = None if fn_lib is None else time_ms(torch, fn_lib)
+        bms, by = bound_ms(nbytes, nops, peak)
+        rows[name] = dict(name=name, route="cuda", source=csrc + name + ".cu",
+                          replaces=replaces, ms=ms, plain_ms=pms,
+                          bound_ms=bms, bound_by=by, library_ms=lms,
+                          max_abs_err=max(err[name], rerr[name]))
+        log(f"time {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), library {lms}")
+    for scheme, corpus in (("int8", c8), ("pq", pq)):
+        whole[scheme] = time_ms(torch, lambda: ops.quantized_similarity_many(
+            qs, corpus, "l2", impl="cuda"))
+    out["quantized_similarity_many_ms"] = whole
+    log("whole quantized_similarity_many (l2, 16 x n): "
+        + json.dumps(whole) + " ms")
+    del T, bag_idx, bag_w
+    truth = {k: flat.exact_topk(qs, x, k, "l2", device=device)[0] for k in KS}
+    # relative contrast of the queries: median l2 distance over the 10th
+    # nearest's (near 1: neighbours barely closer than anything else)
+    dist = 1.0 - sim.pairwise_sim(qs, x, "l2")
+    out["relative_contrast"] = float(
+        (dist.median(dim=1).values / dist.kthvalue(K, dim=1).values).mean())
+    del dist
+    log(f"relative contrast of the queries (median / {K}th-NN distance): "
+        f"{out['relative_contrast']:.4f}")
+
+    def recall(ids, k):
+        return float(np.mean([len(set(ids[r, :k].tolist())
+                                  & set(truth[k][r].tolist())) / k
+                              for r in range(ids.shape[0])]))
+
+    # (c) and (d), the path: counts from here on are the path's
+    ops.reset_launch_counts()
+    t_path = time.perf_counter()
+    stv: dict = {}
+    for scheme, corpus in (("int8", c8), ("pq", pq)):
+        sims, score_s = synced(torch, lambda: ops.quantized_similarity_many(
+            qs, corpus, "l2"))
+        order = torch.sort(sims, dim=1, descending=True, stable=True).indices
+        del sims
+        plain = ops.quantized_similarity_many(qs[:RERUN_Q], corpus, "l2",
+                                              impl="ref")
+        order_p = torch.sort(plain, dim=1, descending=True,
+                             stable=True).indices
+        del plain
+        res = {"score_s": score_s}
+        for k in KS:
+            pre = order[:, :PREFILTER * k]
+            ids, _ = flat.exact_rerank(qs, pre, x, "l2", device=device)
+            pre_p = order_p[:, :PREFILTER * k]
+            ids_p, _ = flat.exact_rerank(qs[:RERUN_Q], pre_p, x, "l2",
+                                         device=device)
+            if not (torch.equal(pre_p, pre[:RERUN_Q])
+                    and np.array_equal(ids_p, ids[:RERUN_Q])):
+                raise AssertionError(f"{scheme} k={k}: the plain-version "
+                                     "rerun gives other ids")
+            res[f"recall@{k}"] = recall(ids, k)
+            if scheme == "int8" and res[f"recall@{k}"] < INT8_RECALL_FLOOR:
+                raise AssertionError(
+                    f"int8 recall@{k} {res[f'recall@{k}']:.3f} under the "
+                    f"floor {INT8_RECALL_FLOOR}")
+        stv[scheme] = res
+        log(f"score-then-verify {scheme}: " + json.dumps(res))
+    beam: dict = {}
+    beam_ids: dict = {}
+    for scheme, corpus in (("float", x), ("int8", c8), ("pq", pq)):
+        g = make_flat_graph(corpus, graph.neighbors, None, graph.entry, "l2",
+                            device=device)
+        st, beam_s = synced(torch, lambda: bs.run_search(
+            g, qs, bs.init_state(g, qs, BEAM_L), stable_limit=BEAM_L))
+        ids_k, _ = tbatch.batch_beam_search(g, qs, K, BEAM_L)
+        if not torch.equal(ids_k, st.queue.ids[:, :K]):
+            raise AssertionError(f"batch_beam_search differs from its loop "
+                                 f"({scheme})")
+        beam_ids[scheme] = ids_k
+        ids, _ = flat.exact_rerank(qs, st.queue.ids, x, "l2", device=device)
+        steps = st.steps.cpu().numpy()
+        beam[scheme] = {"recall@10": recall(ids, K),
+                        "recall@10_before_rerank": recall(
+                            ids_k.cpu().numpy(), K),
+                        "steps_mean": float(steps.mean()),
+                        "steps_max": int(steps.max()), "search_s": beam_s}
+        log(f"batch_beam_search {scheme}: " + json.dumps(beam[scheme]))
+    launches = ops.launch_counts()
+    missing = [k for k in PATH5_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the compressed path: "
+                             f"{missing}")
+    out.update(score_then_verify=stv, beam_search=beam,
+               path_s=time.perf_counter() - t_path,
+               launches={k: launches[k] for k in PATH5_KERNELS})
+
+    # after the path's counts: the float beam rerun on the plain versions,
+    # and where its recall comes from (a wider beam, the true nearest node
+    # as the entry)
+    gf = make_flat_graph(x, graph.neighbors, None, graph.entry, "l2",
+                         device=device)
+    ids_p, _ = tbatch.batch_beam_search(gf, qs[:RERUN_Q], K, BEAM_L,
+                                        impl="ref")
+    if not torch.equal(ids_p, beam_ids["float"][:RERUN_Q]):
+        raise AssertionError("float beam search: the plain-version rerun "
+                             "gives other ids")
+    nearest = torch.as_tensor(truth[K][:, 0], dtype=torch.int32,
+                              device=device)
+    reach = {}
+    for L, start in [(L, "entry") for L in BEAM_WIDER] + [(BEAM_L,
+                                                          "nearest")]:
+        st = bs.init_state(gf, qs, L)
+        if start == "nearest":
+            st.queue.ids[:, 0] = nearest
+            st.queue.scores[:, 0] = ops.batch_similarity_gather(
+                qs, x, nearest[:, None], "l2")[:, 0]
+        st = bs.run_search(gf, qs, st, stable_limit=L)
+        steps = st.steps.cpu().numpy()
+        reach[f"L{L}_{start}"] = {"recall@10": recall(
+            st.queue.ids[:, :K].cpu().numpy(), K),
+            "steps_mean": float(steps.mean())}
+    out["float_beam_reach"] = reach
+    log("float beam: plain rerun of 4 queries gives the same ids; recall@10 "
+        "by beam width and entry " + json.dumps(reach))
+    report["compressed_path"] = out
+    log("compressed path: launches " + json.dumps(out["launches"]))
+    return rows, {k: launches[k] for k in PATH5_KERNELS}
 
 
 def main() -> int:
@@ -502,7 +785,11 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
 
-    launches = main_path(torch, args, report, device)
+    launches, graph, qs_np = main_path(torch, args, report, device)
+    qrows, qlaunches = compressed_path(torch, report, graph, qs_np[:LANES],
+                                       args.seed, device)
+    timings.update(qrows)
+    launches = {**launches, **qlaunches}
     kernels = []
     for name, row in timings.items():
         kernels.append(dict(row, launches=int(launches[name])))

@@ -1,10 +1,17 @@
-"""Beam-search state (port of the parts of ``repro.core.beam_search`` the
-batched engine needs: ``SearchState`` and ``init_state``).
+"""Beam search (paper Alg. 1) over a lane axis (port of ``repro.core.beam_search``:
+``SearchState``, ``init_state``, ``run_search``, ``beam_search``).
 
-The per-query loops (``run_search``, ``resume_search``, ``beam_search``,
-``rebuild_for_growth``) come with the per-query drivers' slice; the batched
-engine runs its own lockstep burst and rebuild
-(``core.batch_progressive``).
+The reference vmaps one ``lax.while_loop`` per query; here the lanes run
+in lockstep: each iteration expands the first unstable entry of every lane
+still running and leaves a stopped lane's state as it was, so each lane
+ends where its own loop would. Float corpora score the expanded node's
+neighbour rows with ``kops.batch_similarity_gather``; quantized corpora
+score the gathered compressed rows with ``quant.score_rows`` against a
+query view prepared once per search.
+
+``resume_search``, ``progressive_beam_search`` and ``rebuild_for_growth``
+come with the per-query drivers; the batched engine runs its own burst and
+rebuild (``core.batch_progressive``).
 """
 from __future__ import annotations
 
@@ -12,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import quant
 from repro_torch.core import queue as qmod
 from repro_torch.core.graph import FlatGraph, descend
 from repro_torch.core.queue import Queue
@@ -36,8 +44,13 @@ def init_state(graph: FlatGraph, qs: torch.Tensor, capacity: int,
     else:
         entries = [int(graph.entry)] * B
     entry = torch.tensor(entries, dtype=torch.int32, device=dev)
-    s0 = kops.batch_similarity_gather(qs, graph.vectors, entry[:, None],
-                                      graph.metric, impl)[:, 0]
+    if quant.is_quantized(graph.vectors):
+        qprep = quant.prepare_query(graph.vectors, qs, graph.metric)
+        s0 = quant.score_rows(qprep, graph.vectors, entry[:, None],
+                              graph.metric)[:, 0]
+    else:
+        s0 = kops.batch_similarity_gather(qs, graph.vectors, entry[:, None],
+                                          graph.metric, impl)[:, 0]
     queue = qmod.make_queue(capacity, (B,), dev)
     queue.ids[:, 0] = entry
     queue.scores[:, 0] = s0
@@ -45,3 +58,71 @@ def init_state(graph: FlatGraph, qs: torch.Tensor, capacity: int,
     visited = torch.zeros((B, graph.size), dtype=torch.bool, device=dev)
     return SearchState(queue, visited,
                        torch.zeros(B, dtype=torch.int32, device=dev))
+
+
+def _search_loop(vectors, neighbors, qs, state: SearchState, stable_limit,
+                 min_value, max_steps, metric: str,
+                 impl: str | None = None) -> SearchState:
+    """The shared loop: while a lane's first unstable entry among its first
+    ``stable_limit`` exists, scores at least ``min_value`` and the lane has
+    taken fewer than ``max_steps`` steps, expand it. The limits broadcast
+    over the lanes."""
+    ids, scores, stable = state.queue
+    visited, steps = state.visited.clone(), state.steps.clone()
+    B = ids.shape[0]
+    dev = ids.device
+    lanes = torch.arange(B, device=dev)
+    compressed = quant.is_quantized(vectors)
+    qprep = quant.prepare_query(vectors, qs, metric) if compressed else None
+    stable_limit = torch.as_tensor(stable_limit, device=dev).expand(B)
+    min_value = torch.as_tensor(min_value, dtype=torch.float32,
+                                device=dev).expand(B)
+    max_steps = torch.as_tensor(max_steps, device=dev).expand(B)
+    while True:
+        p, exists = qmod.first_unstable(Queue(ids, scores, stable),
+                                        stable_limit)
+        run = exists & (scores[lanes, p] >= min_value) & (steps < max_steps)
+        if not bool(run.any()):
+            break
+        node = ids[lanes, p].clamp(min=0).long()
+        marked = stable.clone()
+        marked[lanes, p] = stable[lanes, p] | run
+        visited[lanes, node] = visited[lanes, node] | run
+        nbrs = neighbors[node]                                  # [B, M0]
+        safe = nbrs.clamp(min=0)
+        fresh = (nbrs >= 0) & ~visited[lanes[:, None], safe.long()]
+        if compressed:
+            sims = quant.score_rows(qprep, vectors, safe, metric)
+        else:
+            sims = kops.batch_similarity_gather(qs, vectors, nbrs, metric,
+                                                impl)
+        new = qmod.insert(Queue(ids, scores, marked), nbrs, sims, fresh)
+        r = run[:, None]
+        ids = torch.where(r, new.ids, ids)
+        scores = torch.where(r, new.scores, scores)
+        stable = torch.where(r, new.stable, stable)
+        steps = steps + run.to(torch.int32)
+    return SearchState(Queue(ids, scores, stable), visited, steps)
+
+
+def run_search(graph: FlatGraph, qs: torch.Tensor, state: SearchState,
+               stable_limit, min_value=float("-inf"), max_steps=None,
+               impl: str | None = None) -> SearchState:
+    """Run every lane's loop from ``state`` to its stop; ``max_steps``
+    defaults to ``4 * capacity + 64``, as in the reference."""
+    if max_steps is None:
+        max_steps = 4 * state.queue.capacity + 64
+    return _search_loop(graph.vectors, graph.neighbors, qs, state,
+                        stable_limit, min_value, max_steps, graph.metric,
+                        impl)
+
+
+def beam_search(graph: FlatGraph, q: torch.Tensor, k: int, L: int,
+                capacity: int | None = None, impl: str | None = None):
+    """Paper Alg. 1: plain beam search of q[d] -> (ids[k], scores[k]), or
+    of q[B, d] -> (ids[B, k], scores[B, k])."""
+    qs = q[None] if q.dim() == 1 else q
+    state = init_state(graph, qs, capacity or L, impl)
+    state = run_search(graph, qs, state, stable_limit=L, impl=impl)
+    ids, scores = state.queue.ids[:, :k], state.queue.scores[:, :k]
+    return (ids[0], scores[0]) if q.dim() == 1 else (ids, scores)

@@ -1,12 +1,13 @@
 """Flat, fixed-shape proximity graph (port of ``repro.core.graph``).
 
-  vectors    f32[N, d]          the database (float corpora only)
+  vectors    f32[N, d]          the database, or a quantized corpus
+                                (``quant.Int8Corpus`` / ``quant.PQCorpus``)
   neighbors  int32[N, M0]       level-0 adjacency, -1 padded
   upper      int32[Lu, N, Mu]   upper-level adjacency; may have Lu == 0
   entry      int                entry node at the top level
 
-The port has no quantized corpora yet: ``make_flat_graph`` and
-``from_host`` raise on one rather than storing it.
+Quantized graphs are level-0 only (the upper-level descent reads float
+rows), as in the reference.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import quant, resolve_device
 from repro_torch.core.similarity import query_sim
 
 
@@ -48,23 +49,38 @@ class FlatGraph:
         return self.vectors.device
 
 
-def _float_corpus(vectors) -> torch.Tensor:
+def _corpus(vectors, device: torch.device):
+    """The graph's corpus on ``device``: a quantized corpus as it is, else
+    float32 rows."""
+    if quant.is_quantized(vectors):
+        return vectors.to(device)
+    if isinstance(vectors, dict):             # a quantized corpus, on the host
+        return quant.corpus_from_host(vectors, device)
     if not isinstance(vectors, torch.Tensor):
         vectors = np.asarray(vectors)
         if vectors.dtype.kind == "f":
             vectors = torch.from_numpy(np.array(vectors, np.float32))
     if not (isinstance(vectors, torch.Tensor) and vectors.is_floating_point()):
-        raise TypeError("repro_torch has no quantized corpora yet; "
-                        f"got a corpus of {type(vectors).__name__} "
+        raise TypeError("a graph's corpus is float rows or a quantized "
+                        "corpus (quant.Int8Corpus / quant.PQCorpus); got "
+                        f"{type(vectors).__name__} "
                         f"{getattr(vectors, 'dtype', '')}")
-    return vectors
+    return vectors.to(device, torch.float32).contiguous()
 
 
 def make_flat_graph(vectors, neighbors, upper, entry: int, metric: str,
                     device=None) -> FlatGraph:
-    """Graph on ``device`` (``cuda`` unless given) from arrays or tensors."""
+    """Graph on ``device`` (``cuda`` unless given) from arrays or tensors.
+
+    ``vectors`` may be a float corpus or a quantized one; a quantized graph
+    takes no upper levels."""
     device = resolve_device(device)
-    vectors = _float_corpus(vectors).to(device, torch.float32).contiguous()
+    if quant.is_quantized(vectors) or isinstance(vectors, dict):
+        if upper is not None and upper.shape[0] != 0:
+            raise ValueError(
+                "quantized corpora do not support upper HNSW levels; "
+                "build a level-0 (knng) graph instead")
+    vectors = _corpus(vectors, device)
 
     def int32(a):
         return torch.as_tensor(np.array(a) if not isinstance(a, torch.Tensor)
@@ -80,14 +96,18 @@ def make_flat_graph(vectors, neighbors, upper, entry: int, metric: str,
 def from_host(host: dict, device=None) -> FlatGraph:
     """Graph from the dict ``repro.core.graph.to_host`` returns (numpy
     arrays ``vectors``/``neighbors``/``upper``, int ``entry``, str
-    ``metric``) — the carrier both packages share one graph through."""
+    ``metric``) — the carrier both packages share one graph through. A
+    quantized corpus's ``vectors`` is the dict ``quant.corpus_to_host``
+    gives."""
     return make_flat_graph(host["vectors"], host["neighbors"], host["upper"],
                            int(host["entry"]), host["metric"], device=device)
 
 
 def to_host(graph: FlatGraph) -> dict:
-    return dict(vectors=graph.vectors.cpu().numpy(),
-                neighbors=graph.neighbors.cpu().numpy(),
+    vectors = (quant.corpus_to_host(graph.vectors)
+               if quant.is_quantized(graph.vectors)
+               else graph.vectors.cpu().numpy())
+    return dict(vectors=vectors, neighbors=graph.neighbors.cpu().numpy(),
                 upper=graph.upper.cpu().numpy(),
                 entry=int(graph.entry), metric=graph.metric)
 

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.graph import FlatGraph, make_flat_graph
-from repro_torch.core.similarity import pairwise_sim
+from repro_torch.core.similarity import pairwise_sim, query_sim, sqrt_rn
 
 
 # nodes pruned at once: their candidates' Gram is 4096 x 96 x 96 floats
@@ -41,13 +41,20 @@ def _sims_block(q_block: np.ndarray, x: np.ndarray, metric: str) -> np.ndarray:
     raise ValueError(metric)
 
 
+def _tensor(a, dev: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """An array or a tensor as a ``dtype`` tensor on ``dev``."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(np.asarray(a))
+    return a.to(dev, dtype)
+
+
 def exact_topk(queries, x, k: int, metric: str, block: int = 256,
                device=None) -> tuple[np.ndarray, np.ndarray]:
-    """Exact top-k (ids, scores) per query; ties go to the lower id."""
+    """Exact top-k (ids, scores) per query; ties go to the lower id. The
+    inputs are arrays or tensors."""
     dev = resolve_device(device)
-    qs = torch.as_tensor(np.atleast_2d(np.asarray(queries, np.float32)),
-                         device=dev)
-    xt = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    qs = torch.atleast_2d(_tensor(queries, dev))
+    xt = _tensor(x, dev)
     ids, scores = [], []
     for s in range(0, qs.shape[0], block):
         sims = pairwise_sim(qs[s:s + block], xt, metric)
@@ -55,6 +62,32 @@ def exact_topk(queries, x, k: int, metric: str, block: int = 256,
         ids.append(order[:, :k].to(torch.int32).cpu())
         scores.append(top[:, :k].cpu())
     return torch.cat(ids).numpy(), torch.cat(scores).numpy()
+
+
+def exact_rerank(queries, cand_ids, x, metric: str,
+                 device=None) -> tuple[np.ndarray, np.ndarray]:
+    """Exact float rerank of candidate frontiers (the quantized path's
+    score-then-verify stage), on ``device`` (``cuda`` unless given).
+
+    ``queries`` f32[B, d], ``cand_ids`` int[B, K] (-1 padded), ``x``
+    f32[N, d] the float corpus, as arrays or tensors. Each
+    row's valid candidates are re-scored with ``query_sim`` (one fixed
+    reduction order, so a row's scores do not depend on the batch) and
+    sorted by (score desc, id asc); -1 entries keep score -inf and sink to
+    the tail. Returns ``(ids int32[B, K], scores f32[B, K])``."""
+    dev = resolve_device(device)
+    qs = torch.atleast_2d(_tensor(queries, dev))
+    ids = _tensor(cand_ids, dev, torch.int32)
+    xt = _tensor(x, dev)
+    valid = ids >= 0
+    sims = query_sim(qs[:, None, :], xt[ids.clamp(min=0).long()], metric)
+    sims = torch.where(valid, sims, float("-inf"))
+    by_id = torch.sort(ids, dim=1, stable=True).indices
+    by_score = torch.sort(torch.gather(sims, 1, by_id), dim=1,
+                          descending=True, stable=True).indices
+    order = torch.gather(by_id, 1, by_score)
+    return (torch.gather(ids, 1, order).cpu().numpy(),
+            torch.gather(sims, 1, order).cpu().numpy())
 
 
 def _norm_terms(x: np.ndarray, metric: str) -> np.ndarray | None:
@@ -79,7 +112,7 @@ def _sims_rows(xq: torch.Tensor, xt: torch.Tensor, nq, nx,
     if metric == "l2":
         d2 = torch.clamp(nq[..., :, None] + nx[..., None, :] - 2.0 * dots,
                          min=0.0)
-        return 1.0 - torch.sqrt(d2)
+        return 1.0 - sqrt_rn(d2)
     raise ValueError(metric)
 
 

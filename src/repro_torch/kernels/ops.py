@@ -7,20 +7,23 @@ impl resolution, at call time:
   * "ref": the plain PyTorch oracle (``kernels/ref.py``) on any device.
 
 Nothing falls back quietly: a kernel that fails to build or launch raises.
-This slice ports the four ops of the main path in the batched forms the
-engine calls; the single-lane ``pairwise_adjacency`` / ``greedy_diversify``
-(for the per-query drivers), ``topk_merge`` and the quantized scorers come
-with later slices.
+The ops of the batched engine come in the batched forms the engine calls,
+and ``quantized_similarity_many`` scores compressed corpora; the
+single-lane ``pairwise_adjacency`` / ``greedy_diversify`` (for the
+per-query drivers) and ``topk_merge`` come with later slices.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import quant as _quant
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.batch_similarity import sim_gather_cuda, sim_many_cuda
 from repro_torch.kernels.fused_round import fused_round_cuda
 from repro_torch.kernels.greedy_diversify import greedy_cuda
+from repro_torch.kernels.int8_similarity import int8_dot_cuda
 from repro_torch.kernels.pairwise_adjacency import adjacency_raw_cuda
+from repro_torch.kernels.pq_lut_similarity import pq_lut_sum_cuda
 
 _DEFAULT_IMPL = None  # overridable via set_default_impl
 _IMPLS = ("auto", "ref", "cuda")
@@ -46,12 +49,14 @@ def resolve(impl: str | None, t: torch.Tensor) -> str:
     return impl
 
 
-#: every kernel wrapper of this slice, by the name its launches are kept under
+#: every kernel wrapper, by the name its launches are kept under
 KERNELS = {"batch_similarity_many": sim_many_cuda,
            "batch_similarity_gather": sim_gather_cuda,
            "pairwise_adjacency": adjacency_raw_cuda,
            "greedy_diversify": greedy_cuda,
-           "fused_round": fused_round_cuda}
+           "fused_round": fused_round_cuda,
+           "int8_dot": int8_dot_cuda,
+           "pq_lut_sum": pq_lut_sum_cuda}
 
 
 def launch_counts() -> dict[str, int]:
@@ -98,6 +103,34 @@ def batch_similarity_gather(qs: torch.Tensor, x: torch.Tensor,
     if resolve(impl, x) == "ref":
         return _ref.batch_similarity_gather(qs, x, ids, metric)
     return sim_gather_cuda(_f32(qs), _f32(x), _i32(ids), metric)
+
+
+def quantized_similarity_many(qs: torch.Tensor, corpus, metric: str,
+                              impl: str | None = None) -> torch.Tensor:
+    """sim(qs[b, d], compressed corpus[n]) -> f32[b, n].
+
+    ``corpus`` is a ``quant.Int8Corpus`` (exact int8 dots, ``int8_dot``) or
+    a ``quant.PQCorpus`` (LUT sums over the query tables, and for cos over
+    the centroid norms too, ``pq_lut_sum``). Both rungs share the float
+    arithmetic around the kernel, so they agree bit for bit."""
+    if isinstance(corpus, _quant.Int8Corpus):
+        if resolve(impl, corpus.codes) == "ref":
+            return _ref.int8_similarity_many(qs, corpus, metric)
+        q_codes, q_scales = _quant.quantize_queries(qs)
+        dots = int8_dot_cuda(q_codes.contiguous(), corpus.codes.contiguous())
+        return _quant.int8_score_from_dots(dots, q_codes, q_scales, corpus,
+                                           metric)
+    if isinstance(corpus, _quant.PQCorpus):
+        if resolve(impl, corpus.codes) == "ref":
+            return _ref.pq_similarity_many(qs, corpus, metric)
+        T, S, qn = _quant.pq_luts_many(qs, corpus.codebooks, metric)
+        codes = corpus.codes.contiguous()
+        sumT = pq_lut_sum_cuda(T.contiguous(), codes)
+        sumS = (pq_lut_sum_cuda(S[None].contiguous(), codes)
+                if metric == "cos" else None)
+        return _quant.pq_postprocess(sumT, sumS, qn[:, None], metric)
+    raise TypeError("quantized_similarity_many needs a quantized corpus, "
+                    f"got {type(corpus).__name__}")
 
 
 def pairwise_adjacency_batch(vectors: torch.Tensor, ids: torch.Tensor, eps,

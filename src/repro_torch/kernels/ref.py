@@ -1,16 +1,16 @@
 """Plain PyTorch versions of the port's kernels: the port's oracle.
 
-Port of ``repro.kernels.ref`` for the four ops of the main path, composed as
-the reference composes them. Each takes optional leading lane axes where the
-reference is vmapped. The CUDA kernels are held against these on the card;
-on a CPU tensor ``kernels.ops`` runs these and nothing else. ``topk_merge``,
-``int8_similarity_many`` and ``pq_similarity_many`` come with the slices
-that port their kernels.
+Port of ``repro.kernels.ref`` for the ops of the batched engine and the
+compressed-corpus scorers, composed as the reference composes them. Each
+takes optional leading lane axes where the reference is vmapped. The CUDA
+kernels are held against these on the card; on a CPU tensor ``kernels.ops``
+runs these and nothing else. ``topk_merge`` comes with the mesh slice.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import quant
 from repro_torch.core.similarity import pairwise_sim, query_sim
 
 
@@ -32,6 +32,37 @@ def batch_similarity_gather(qs: torch.Tensor, x: torch.Tensor,
     """scores[b, m] = query_sim(qs[b], x[max(ids[b, m], 0)]) -> f32[B, M]:
     the burst's per-lane scoring of gathered neighbour rows."""
     return query_sim(qs[:, None, :], x[ids.clamp(min=0).long()], metric)
+
+
+def int8_dot(q_codes: torch.Tensor, x_codes: torch.Tensor) -> torch.Tensor:
+    """Exact dots int32[b, n] of int8 q_codes[b, d] and x_codes[n, d].
+
+    The product is taken in float64, which is exact (|dot| <= 127^2 * d <
+    2^53) and runs on the CPU and the card alike (the card has no int32
+    matmul)."""
+    return (q_codes.to(torch.float64) @ x_codes.to(torch.float64).T).to(
+        torch.int32)
+
+
+def int8_similarity_many(qs: torch.Tensor, corpus: quant.Int8Corpus,
+                         metric: str) -> torch.Tensor:
+    """Quantized scores f32[b, n] of an int8 corpus against float queries
+    qs[b, d]: exact integer dots, then the shared float postprocess."""
+    q_codes, q_scales = quant.quantize_queries(qs)
+    dots = int8_dot(q_codes, corpus.codes)
+    return quant.int8_score_from_dots(dots, q_codes, q_scales, corpus, metric)
+
+
+def pq_similarity_many(qs: torch.Tensor, corpus: quant.PQCorpus,
+                       metric: str) -> torch.Tensor:
+    """Quantized scores f32[b, n] of a PQ corpus against float queries
+    qs[b, d]: LUT sums added subspace by subspace, then the shared
+    postprocess (only cos reads the centroid norms' sums)."""
+    T, S, qn = quant.pq_luts_many(qs, corpus.codebooks, metric)
+    sumT = quant.pq_lut_sum(T, corpus.codes)
+    sumS = (quant.pq_lut_sum(S, corpus.codes)[None, :] if metric == "cos"
+            else None)
+    return quant.pq_postprocess(sumT, sumS, qn[:, None], metric)
 
 
 def pairwise_adjacency(x: torch.Tensor, eps, metric: str,

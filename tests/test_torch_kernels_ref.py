@@ -1,6 +1,6 @@
 """repro_torch.kernels.ops (ref rung, CPU) against repro.kernels.ops at
-impl="ref", the dispatch ladder, and — on a machine with a card — each CUDA
-kernel against its plain version."""
+impl="ref", and the dispatch ladder. The CUDA kernels are held against
+their plain versions in ``test_torch_cuda_kernels.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,7 +8,6 @@ import torch
 
 from repro.core.batch_progressive import _batched_adjacency
 from repro.kernels import ops as jops
-from repro_torch.core import similarity as tsim
 from repro_torch.kernels import ops as tops
 
 # tiny tensors: one intra-op thread keeps parallel test workers from
@@ -149,54 +148,3 @@ def test_ladder_names_and_no_hidden_fallback():
     tops.reset_launch_counts()
     tops.batch_similarity(x[0], x, "l2")
     assert sum(tops.launch_counts().values()) == 0
-
-
-# --------------------------------------------------------------- on the card --
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("metric", METRICS)
-def test_cuda_kernels_match_plain_versions(cuda_device, metric):
-    x = torch.from_numpy(_corpus(n=2000, d=96)).to(cuda_device)
-    qs = torch.from_numpy(_corpus(3, n=16, d=96)).to(cuda_device)
-    ids_np, scores_np, Ks, _ = _prefixes(_corpus(n=2000, d=96), metric,
-                                         B=8, W=256)
-    ids = torch.from_numpy(ids_np).to(cuda_device)
-    scores = torch.from_numpy(scores_np).to(cuda_device)
-    # eps at each lane's 0.9 quantile of pair similarity: ~10% edges
-    rows = x[ids.clamp(min=0).long()]
-    eps = torch.quantile(tsim.pairwise_sim(rows, rows, metric).flatten(1),
-                         0.9, dim=1).contiguous()
-    # the kernels reduce in dot_seq's order: scores agree with the plain
-    # version bit for bit up to the metric transform's rounding
-    np.testing.assert_allclose(
-        tops.batch_similarity(qs, x, metric, impl="cuda").cpu(),
-        tops.batch_similarity(qs, x, metric, impl="ref").cpu(), rtol=RTOL,
-        atol=ATOL)
-    nb = ids.clamp(min=0)[:, :32].contiguous()
-    np.testing.assert_allclose(
-        tops.batch_similarity_gather(qs[:8], x, nb, metric, impl="cuda").cpu(),
-        tops.batch_similarity_gather(qs[:8], x, nb, metric, impl="ref").cpu(),
-        rtol=RTOL, atol=ATOL)
-    adj_k = tops.pairwise_adjacency_batch(x, ids, eps, metric, impl="cuda")
-    adj_r = tops.pairwise_adjacency_batch(x, ids, eps, metric, impl="ref")
-    assert torch.equal(adj_k, adj_r) and bool(adj_k.any())
-    valid = ids >= 0
-    for k in (5, 10):
-        gk = tops.greedy_diversify_batch(scores, adj_r, k, valid, impl="cuda")
-        gr = tops.greedy_diversify_batch(scores, adj_r, k, valid, impl="ref")
-        assert torch.equal(gk[0], gr[0]) and torch.equal(gk[1], gr[1])
-        fk = tops.fused_round_batch(x, ids, scores, Ks, eps, k, metric,
-                                    impl="cuda")
-        fr = tops.fused_round_batch(x, ids, scores, Ks, eps, k, metric,
-                                    impl="ref")
-        for a, b in zip(fk[:3], fr[:3]):
-            assert torch.equal(a, b)
-        np.testing.assert_allclose(fk[3].cpu(), fr[3].cpu(), rtol=RTOL,
-                                   atol=ATOL)

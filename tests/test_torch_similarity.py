@@ -79,6 +79,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch, repro_torch.core.batch_progressive\n"
         "import repro_torch.index.flat, repro_torch.kernels.ops\n"
         "import repro_torch.core.div_astar, repro_torch.core.theorems\n"
+        "import repro_torch.quant, repro_torch.core.batch\n"
+        "import repro_torch.kernels.int8_similarity\n"
+        "import repro_torch.kernels.pq_lut_similarity\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
