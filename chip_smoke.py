@@ -46,6 +46,27 @@ Phases:
    recall@10 is recorded at L = 40, 100, 200 from the graph's entry and at
    L = 40 from each query's true nearest node.
 
+6. The sharded path on phase 4's corpus, queries and eps: (a) topk_merge
+   against its plain version at 64 rows (4 shards x 16 lanes) and L in
+   {10, 32, 128, 1000, 4096}, with equal scores, -0.0 beside +0.0 and
+   padding tails: ids and score bits equal; timed at L = 32 and 4096.
+   (b) ``build_sharded_index``: 4 shards of 250 000 rows, M = 16, on the
+   card, and an int8 copy of it (each shard quantized, 8 rows per scale).
+   (c) ``sharded_topk`` (k = 10, L = 40) of 16 queries: tournament and
+   allgather merges give equal ids, and so does a rerun on the plain
+   versions; recall@10 against the exact top-10 is recorded. Then
+   ``sharded_diverse_search`` (k = 10, K = 32, div-A*) on the float and the
+   int8 index; every result must satisfy the diversity condition, and a
+   rerun of each on the plain versions must give the same ids and
+   certificates.
+   (d) A prewarmed ``ShardedEngine`` (16 lanes, resume="beam", K0 = 32,
+   L_factor = 4, 8 rounds, k = 10) serves the held-out queries with
+   continuous admission. Every result must satisfy the diversity
+   condition; every lane finished in its first round must equal
+   ``sharded_diverse_search`` at its K_final; the first 8 queries rerun
+   through ``sharded_progressive_diverse`` on the plain versions must give
+   the same ids and certificates.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Any failure exits non-zero before the last line.
@@ -82,6 +103,10 @@ RAGGED_N, RAGGED_D, RAGGED_M = 100_003, 30, 5
 PATH4_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
                  "pairwise_adjacency", "greedy_diversify", "fused_round")
 PATH5_KERNELS = ("int8_dot", "pq_lut_sum")
+PATH6_KERNELS = ("topk_merge", "batch_similarity_gather", "pairwise_adjacency")
+# phase 6: the sharded path (ShardedEngine's defaults)
+SHARDS, SH_L, SH_KDIV, K0, L_FACTOR, MAX_ROUNDS = 4, 40, 32, 32, 4, 8
+MERGE_ROWS, MERGE_LS, MERGE_TIMED = 64, (10, 32, 128, 1000, 4096), (32, 4096)
 
 
 T0 = time.perf_counter()
@@ -311,16 +336,16 @@ class StageTimer:
         setattr(module, attr, timed)
 
 
-def profile_batch(torch, tbp, ops, graph, qs, eps, batch_wall_s):
-    """The lockstep batch again under torch.profiler: the device's busy
-    share of that batch's unprofiled wall time, kernels per burst step, top
-    kernels. Device activity only: a host-op trace of ~100 ops per burst
-    step takes minutes to parse."""
+def profile_batch(torch, ops, run, batch_wall_s, what):
+    """``run()`` again under torch.profiler: the device's busy share of its
+    unprofiled wall time, kernels per burst step (one gathered-scoring
+    launch a step), top kernels. Device activity only: a host-op trace of
+    ~100 ops per burst step takes minutes to parse."""
     from torch.profiler import ProfilerActivity, profile
 
     ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tbp.batch_pss(graph, qs, K, eps, ef=EF, kernel_impl="auto")
+        run()
         torch.cuda.synchronize()
     steps = ops.launch_counts()["batch_similarity_gather"]
     t0 = time.perf_counter()
@@ -338,17 +363,15 @@ def profile_batch(torch, tbp, ops, graph, qs, eps, batch_wall_s):
                device_idle_share=(1.0 - busy_us / 1e6 / batch_wall_s
                                   if busy_us else None),
                top_kernels_s=[(name[:80], us / 1e6) for name, us in top])
-    log("profile of the lockstep batch: " + json.dumps(out))
+    log(f"profile of {what}: " + json.dumps(out))
     return out
 
 
-def serve(torch, tbp, engine, qs, eps):
+def serve(torch, engine, qs, request):
     """Continuous batching over the engine's lanes: a free lane takes the
-    next query, every occupied lane advances one round per step, finished
-    lanes are harvested and recycled. Returns each query's result and its
-    latency from admission to harvest."""
-    from repro_torch.core.backend import LaneRequest
-
+    next query (``request(q)``), every occupied lane advances one round per
+    step, finished lanes are harvested and recycled. Returns each query's
+    result and its latency from admission to harvest."""
     pending = list(range(len(qs)))
     lane_query: dict[int, int] = {}
     admitted: dict[int, float] = {}
@@ -359,7 +382,7 @@ def serve(torch, tbp, engine, qs, eps):
             if not pending:
                 break
             i = pending.pop(0)
-            engine.admit(int(lane), LaneRequest(qs[i], K, eps, ef=EF))
+            engine.admit(int(lane), request(qs[i]))
             lane_query[int(lane)] = i
             admitted[i] = time.perf_counter()
         engine.step()
@@ -372,8 +395,32 @@ def serve(torch, tbp, engine, qs, eps):
     return results, latency
 
 
+def assert_results(torch, sim, x, ids, scores, eps, what):
+    """Result ids [B, K] in range, finite scores, no duplicate, and no two
+    returned ids G^eps neighbours (the kernels' arithmetic, sim.cuh's
+    order, which dot_seq reproduces)."""
+    n = x.shape[0]
+    k = ids.shape[1]
+    if bool(((ids < -1) | (ids >= n)).any()):
+        raise AssertionError(f"{what}: ids out of range")
+    if not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"{what}: non-finite scores")
+    valid = ids >= 0
+    rows = x[ids.clamp(min=0).long()]
+    pair = sim.query_sim(rows[:, :, None, :], rows[:, None, :, :], "l2")
+    off = ~torch.eye(k, dtype=torch.bool, device=ids.device)
+    bad = (pair > eps) & off & valid[:, :, None] & valid[:, None, :]
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} result pairs "
+                             "violate sim < eps")
+    dup = (ids[:, :, None] == ids[:, None, :]) & off & valid[:, :, None]
+    if bool(dup.any()):
+        raise AssertionError(f"{what}: duplicate ids in a result")
+
+
 def main_path(torch, args, report, device):
     from repro_torch.core import batch_progressive as tbp
+    from repro_torch.core.backend import LaneRequest
     from repro_torch.core import similarity as sim
     from repro_torch.index import flat
     from repro_torch.kernels import ops
@@ -421,7 +468,8 @@ def main_path(torch, args, report, device):
     prewarm_launches = ops.launch_counts()
     timer.seconds.clear()
     t_all = time.perf_counter()
-    results, lat = serve(torch, tbp, engine, qs, eps)
+    results, lat = serve(torch, engine, qs,
+                         lambda q: LaneRequest(q, K, eps, ef=EF))
     total_s = time.perf_counter() - t_all
     launches = ops.launch_counts()
     stage_s = dict(timer.seconds)
@@ -436,22 +484,8 @@ def main_path(torch, args, report, device):
     cert = [bool(r.stats.certified) for r in results]
     if ids.shape != (nq, K):
         raise AssertionError(f"result shape {tuple(ids.shape)}")
-    if bool(((ids < -1) | (ids >= n)).any()):
-        raise AssertionError("ids out of range")
-    if not all(np.isfinite(r.scores).all() for r in results):
-        raise AssertionError("non-finite scores")
-    # diversity: no two returned ids are G^eps neighbours (the kernels'
-    # own arithmetic, sim.cuh's order, which dot_seq reproduces)
-    valid = ids >= 0
-    rows = graph.vectors[ids.clamp(min=0).long()]
-    pair = sim.query_sim(rows[:, :, None, :], rows[:, None, :, :], "l2")
-    off = ~torch.eye(K, dtype=torch.bool, device=device)
-    bad = (pair > eps) & off & valid[:, :, None] & valid[:, None, :]
-    if bool(bad.any()):
-        raise AssertionError(f"{int(bad.sum())} result pairs violate sim < eps")
-    dup = (ids[:, :, None] == ids[:, None, :]) & off & valid[:, :, None]
-    if bool(dup.any()):
-        raise AssertionError("duplicate ids in a result")
+    assert_results(torch, sim, graph.vectors, ids, torch.as_tensor(
+        np.stack([r.scores for r in results])), eps, "PSS engine")
 
     # the lockstep entry point on the kernels, then on the plain versions:
     # the same ids and certificates as the continuously served lanes
@@ -472,8 +506,10 @@ def main_path(torch, args, report, device):
     ref = tbp.batch_pss(graph, qs[:RERUN], K, eps, ef=EF, kernel_impl="ref")
     rerun_s = time.perf_counter() - tr
     same(ref, RERUN, "plain-version rerun")
-    profile = profile_batch(torch, tbp, ops, graph, qs[:LANES], eps,
-                            batch_wall_s=lockstep_s)
+    profile = profile_batch(
+        torch, ops, lambda: tbp.batch_pss(graph, qs[:LANES], K, eps, ef=EF,
+                                          kernel_impl="auto"),
+        lockstep_s, "the lockstep batch")
     lat_sorted = sorted(lat)
     summary = dict(
         n=n, d=D, M=M_GRAPH, k=K, ef=EF, lanes=LANES, queries=nq,
@@ -489,7 +525,7 @@ def main_path(torch, args, report, device):
     report["main_path"] = summary
     log("main path: " + json.dumps({k: v for k, v in summary.items()
                                     if k != "expansions"}))
-    return launches, graph, qs
+    return launches, graph, qs, eps
 
 
 # ------------------------------------------------------------- phase 5 ----
@@ -542,7 +578,7 @@ def check_quantized_kernels(torch, quant, ops, corpora, qs, what):
 
 def compressed_path(torch, report, graph, qs_np, seed, device):
     """Phase 5: the compressed-corpus path on phase 4's corpus and graph.
-    Returns the two kernels' rows and their launches on the path."""
+    Returns the two kernels' rows and every kernel's launches on the path."""
     from repro_torch import quant
     from repro_torch.core import batch as tbatch
     from repro_torch.core import beam_search as bs
@@ -742,7 +778,243 @@ def compressed_path(torch, report, graph, qs_np, seed, device):
         "by beam width and entry " + json.dumps(reach))
     report["compressed_path"] = out
     log("compressed path: launches " + json.dumps(out["launches"]))
-    return rows, {k: launches[k] for k in PATH5_KERNELS}
+    return rows, launches
+
+
+# ------------------------------------------------------------- phase 6 ----
+
+def merge_runs(torch, R, L, seed, device):
+    """Two runs a row, [R, L] each, sorted by (score desc, id asc): ids
+    drawn per row from [0, 4L) (the runs share ids, so equal keys meet
+    across runs), scores from nine values with about a third zeros, half of
+    those -0.0, and a (-1, -inf) padding tail of random length; row 0 of
+    the second run is all padding."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for run in range(2):
+        ids = np.argsort(rng.random((R, 4 * L)), axis=1)[:, :L].astype(np.int32)
+        sc = (rng.integers(-4, 5, (R, L)) * 0.5).astype(np.float32)
+        sc[rng.random((R, L)) < 0.3] = 0.0
+        sc[rng.random((R, L)) < 0.5] *= -1.0
+        npad = rng.integers(0, L // 4 + 1, R)
+        if run == 1:
+            npad[0] = L
+        for r in range(R):
+            order = np.lexsort((ids[r], -sc[r]))
+            ids[r], sc[r] = ids[r][order], sc[r][order]
+            ids[r, L - npad[r]:] = -1
+            sc[r, L - npad[r]:] = -np.inf
+        out += [torch.from_numpy(ids).to(device),
+                torch.from_numpy(sc).to(device)]
+    return out
+
+
+def check_topk_merge(torch, device, seed):
+    """Phase 6 (a): topk_merge against its plain version, ids and score
+    bits; returns its kernels-line row (timed at L = 32, the path's first
+    rung) and the times at each timed L."""
+    from repro_torch.kernels.ref import topk_merge as plain
+    from repro_torch.kernels.topk_merge import topk_merge_cuda
+
+    R = MERGE_ROWS
+    times = {}
+    for L in MERGE_LS:
+        args = merge_runs(torch, R, L, seed + L, device)
+        gi, gs = topk_merge_cuda(*args)
+        ri, rs = plain(*args)
+        if not (torch.equal(gi, ri)
+                and torch.equal(gs.view(torch.int32), rs.view(torch.int32))):
+            raise AssertionError(
+                f"topk_merge differs at L={L}: {int((gi != ri).sum())} ids, "
+                f"{int((gs.view(torch.int32) != rs.view(torch.int32)).sum())}"
+                " score bit patterns")
+        if L in MERGE_TIMED:
+            ms = time_ms(torch, lambda: topk_merge_cuda(*args))
+            pms = time_ms(torch, lambda: plain(*args), reps=5)
+            # bytes: two runs read, one written; operations: each entry's
+            # binary search, ~log2(L) + 1 comparisons of two keys
+            bms, by = bound_ms(24 * R * L,
+                               2 * R * L * 2 * (math.log2(L) + 1))
+            times[L] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+            log(f"time topk_merge {R} x {L}: kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms, bound {bms:.6f} ms ({by}), library none")
+    log(f"topk_merge ok: {R} rows at L in {MERGE_LS}, ids and score bits "
+        "equal")
+    row = dict(name="topk_merge", route="cuda",
+               source="src/repro_torch/kernels/csrc/topk_merge.cu",
+               replaces="src/repro/kernels/topk_merge.py:53",
+               library_ms=None, max_abs_err=0.0, **times[MERGE_TIMED[0]])
+    return row, times
+
+
+def sharded_path(torch, report, graph, qs_np, eps, seed, device):
+    """Phase 6: the sharded path on phase 4's corpus, queries and eps.
+    Returns topk_merge's row and the path's launches of every kernel."""
+    import dataclasses
+
+    from repro_torch import quant
+    from repro_torch import sharded_search as ss
+    from repro_torch.compat import make_mesh
+    from repro_torch.core import similarity as sim
+    from repro_torch.core.backend import LaneRequest
+    from repro_torch.index import flat
+    from repro_torch.kernels import ops
+    from repro_torch.sharded_search import search as ssearch
+
+    out: dict = {}
+    row, out["topk_merge_times"] = check_topk_merge(torch, device, seed)
+
+    # (b) set-up: the shard graphs on the card, and an int8 copy
+    x = graph.vectors
+    x_np = x.cpu().numpy()
+    n = x.shape[0]
+    build_timer = StageTimer(torch)
+    for attr in ("_exact_knn", "_alpha_prune", "_add_reverse_edges",
+                 "_stitch_components", "_directed_repair"):
+        build_timer.wrap(flat, attr, attr.lstrip("_"))
+    index, out["build_s"] = synced(torch, lambda: ss.build_sharded_index(
+        x_np, SHARDS, "l2", M=M_GRAPH, device=device))
+    out["build_stage_s"] = build_timer.seconds
+    c8 = [quant.quantize_int8(index.vectors[s], scale_rows=SCALE_ROWS)
+          for s in range(SHARDS)]
+    index8 = dataclasses.replace(
+        index, vectors=None, codes=torch.stack([c.codes for c in c8]),
+        scales=torch.stack([c.scales for c in c8]), scheme="int8",
+        scale_rows=SCALE_ROWS)
+    del c8
+    log(f"sharded index: {SHARDS} shards of {index.shard_size} rows, "
+        f"M={M_GRAPH}, built on the card in {out['build_s']:.1f} s: "
+        + json.dumps({k: round(v, 1) for k, v in build_timer.seconds.items()}))
+    mesh = make_mesh((SHARDS,), ("data",), device=device)
+
+    # (c) the scratch half; counts from here on are the path's
+    q16 = torch.as_tensor(qs_np[:LANES], device=device)
+    ops.reset_launch_counts()
+    t_path = time.perf_counter()
+    (ids_t, _), out["topk_s"] = synced(torch, lambda: ss.sharded_topk(
+        index, q16, K, SH_L, mesh))
+    ids_a, _ = ss.sharded_topk(index, q16, K, SH_L, mesh, merge="allgather")
+    if not torch.equal(ids_t, ids_a):
+        raise AssertionError("sharded_topk: tournament and allgather merges "
+                             "give other ids")
+    ops.set_default_impl("ref")
+    try:
+        ids_p, _ = ss.sharded_topk(index, q16, K, SH_L, mesh)
+    finally:
+        ops.set_default_impl(None)
+    if not torch.equal(ids_t, ids_p):
+        raise AssertionError("sharded_topk: the plain-version rerun gives "
+                             "other ids")
+    truth = flat.exact_topk(q16, x, K, "l2", device=device)[0]
+    got = ids_t.cpu().numpy()
+    out["topk_recall@10"] = float(np.mean(
+        [len(set(got[r].tolist()) & set(truth[r].tolist())) / K
+         for r in range(len(got))]))
+    log(f"sharded_topk k={K} L={SH_L}: tournament == allgather == plain "
+        f"rerun; recall@10 {out['topk_recall@10']:.4f}")
+    for name, idx, xs in (("float", index, x), ("int8", index8, x_np)):
+        (d_ids, d_sc, d_cert), secs = synced(
+            torch, lambda: ss.sharded_diverse_search(idx, xs, q16, K, eps,
+                                                     SH_KDIV, mesh))
+        assert_results(torch, sim, x, d_ids, d_sc, eps,
+                       f"sharded_diverse_search {name}")
+        ops.set_default_impl("ref")
+        try:
+            p_ids, _, p_cert = ss.sharded_diverse_search(idx, xs, q16, K, eps,
+                                                         SH_KDIV, mesh)
+        finally:
+            ops.set_default_impl(None)
+        if not (torch.equal(p_ids, d_ids) and torch.equal(p_cert, d_cert)):
+            raise AssertionError(f"sharded_diverse_search {name}: the "
+                                 "plain-version rerun differs")
+        out[f"diverse_{name}"] = dict(
+            seconds=secs, certified_share=float(d_cert.float().mean()))
+        log(f"sharded_diverse_search {name} (k={K}, K={SH_KDIV}; the plain "
+            "rerun gives the same ids and certificates): "
+            + json.dumps(out[f"diverse_{name}"]))
+
+    # (d) the engine, serving with continuous admission
+    timer = StageTimer(torch)
+    for attr, stage in (("_resume_beams", "beams"), ("_merge", "merge"),
+                        ("_adjacency", "adjacency"),
+                        ("_div_astar", "div_astar")):
+        timer.wrap(ssearch, attr, stage)
+    t0 = time.perf_counter()
+    eng = ss.ShardedEngine(index, x, mesh, num_lanes=LANES, K0=K0,
+                           L_factor=L_FACTOR, max_rounds=MAX_ROUNDS, max_k=K,
+                           resume="beam")
+    eng.prewarm()
+    torch.cuda.synchronize()
+    out["prewarm_s"] = time.perf_counter() - t0
+    timer.seconds.clear()
+    nq = len(qs_np)
+    t_all = time.perf_counter()
+    def request(q):
+        return LaneRequest(q, K, eps, method="sharded")
+
+    results, lat = serve(torch, eng, qs_np, request)
+    total_s = time.perf_counter() - t_all
+    launches = ops.launch_counts()
+    stage_s = dict(timer.seconds)
+    out["path_s"] = time.perf_counter() - t_path
+    missing = [k for k in PATH6_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the sharded path: "
+                             f"{missing}")
+    ids = torch.as_tensor(np.stack([r.ids for r in results]), device=device)
+    assert_results(torch, sim, x, ids, torch.as_tensor(
+        np.stack([r.scores for r in results])), eps, "ShardedEngine")
+    cert = np.array([r.stats.certified for r in results])
+    K_final = np.array([r.stats.K_final for r in results])
+    # a lane finished in its first round is the scratch computation
+    single = [i for i, r in enumerate(results) if r.stats.search_calls == 1]
+    for Kf in sorted(set(K_final[single].tolist())):
+        group = [i for i in single if K_final[i] == Kf]
+        s_ids, _, s_cert = ss.sharded_diverse_search(
+            index, x, qs_np[group], K, eps, int(Kf), mesh)
+        if not (np.array_equal(s_ids.cpu().numpy(), ids[group].cpu().numpy())
+                and np.array_equal(s_cert.cpu().numpy(), cert[group])):
+            raise AssertionError(f"single-round lanes at K={Kf} differ from "
+                                 "sharded_diverse_search")
+    ops.set_default_impl("ref")
+    try:
+        (p_ids, _, p_cert, _), rerun_s = synced(
+            torch, lambda: ss.sharded_progressive_diverse(
+                index, x, qs_np[:RERUN], K, eps, mesh, K0=K0,
+                L_factor=L_FACTOR, max_rounds=MAX_ROUNDS, resume="beam"))
+    finally:
+        ops.set_default_impl(None)
+    if not (np.array_equal(p_ids, ids[:RERUN].cpu().numpy())
+            and np.array_equal(p_cert, cert[:RERUN])):
+        raise AssertionError("sharded_progressive_diverse on the plain "
+                             "versions differs from the engine")
+    # the device's share: the first 16 queries served again, then once
+    # more under the profiler
+    _, wall16 = synced(torch, lambda: serve(torch, eng, qs_np[:LANES],
+                                            request))
+    out["profile"] = profile_batch(
+        torch, ops, lambda: serve(torch, eng, qs_np[:LANES], request),
+        wall16, f"the engine serving {LANES} queries")
+    lat_sorted = sorted(lat)
+    out.update(
+        n=n, shards=SHARDS, shard_size=index.shard_size, k=K, lanes=LANES,
+        K0=K0, L_factor=L_FACTOR, max_rounds=MAX_ROUNDS, queries=nq,
+        total_s=total_s, qps=nq / total_s, p50_s=lat_sorted[nq // 2],
+        p99_s=lat_sorted[min(nq - 1, int(math.ceil(0.99 * nq)) - 1)],
+        certified_share=float(cert.mean()),
+        K_final_hist={int(v): int(c) for v, c in
+                      zip(*np.unique(K_final, return_counts=True))},
+        rounds_hist={int(v): int(c) for v, c in zip(*np.unique(
+            [r.stats.search_calls for r in results], return_counts=True))},
+        expansions=[int(r.stats.expansions) for r in results],
+        stage_s=stage_s, single_round_lanes=len(single),
+        dispatches=sum(eng.signatures.counts.values()),
+        rerun_ref_s=rerun_s, rerun_queries=RERUN,
+        launches={k: launches[k] for k in PATH6_KERNELS})
+    report["sharded_path"] = out
+    log("sharded path: " + json.dumps({k: v for k, v in out.items()
+                                       if k != "expansions"}))
+    return row, launches
 
 
 def main() -> int:
@@ -785,14 +1057,19 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
 
-    launches, graph, qs_np = main_path(torch, args, report, device)
+    launches, graph, qs_np, eps = main_path(torch, args, report, device)
     qrows, qlaunches = compressed_path(torch, report, graph, qs_np[:LANES],
                                        args.seed, device)
     timings.update(qrows)
-    launches = {**launches, **qlaunches}
+    mrow, slaunches = sharded_path(torch, report, graph, qs_np, eps,
+                                   args.seed, device)
+    timings["topk_merge"] = mrow
+    # each kernel's launches over the three paths' runs (each path's own
+    # counts are in chip_smoke.json)
     kernels = []
     for name, row in timings.items():
-        kernels.append(dict(row, launches=int(launches[name])))
+        total = launches[name] + qlaunches[name] + slaunches[name]
+        kernels.append(dict(row, launches=int(total)))
     report["kernels"] = kernels
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -9,9 +9,13 @@ neighbour rows with ``kops.batch_similarity_gather``; quantized corpora
 score the gathered compressed rows with ``quant.score_rows`` against a
 query view prepared once per search.
 
-``resume_search``, ``progressive_beam_search`` and ``rebuild_for_growth``
-come with the per-query drivers; the batched engine runs its own burst and
-rebuild (``core.batch_progressive``).
+Lanes may search different graphs stacked in one corpus (the shards of
+``sharded_search``): ``row_offset`` gives each lane the first row of its
+graph, and its queue, visited set and neighbour lists hold ids local to it.
+
+``progressive_beam_search`` and ``rebuild_for_growth`` come with the
+per-query drivers; the batched engine runs its own burst and rebuild
+(``core.batch_progressive``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch import quant
 from repro_torch.core import queue as qmod
+from repro_torch.core.bucketing import next_pow2
 from repro_torch.core.graph import FlatGraph, descend
 from repro_torch.core.queue import Queue
 from repro_torch.kernels import ops as kops
@@ -60,16 +65,29 @@ def init_state(graph: FlatGraph, qs: torch.Tensor, capacity: int,
                        torch.zeros(B, dtype=torch.int32, device=dev))
 
 
+def _occupied_width(n: int, capacity: int) -> int:
+    return min(capacity, next_pow2(max(n, 1)))
+
+
 def _search_loop(vectors, neighbors, qs, state: SearchState, stable_limit,
-                 min_value, max_steps, metric: str,
-                 impl: str | None = None) -> SearchState:
+                 min_value, max_steps, metric: str, impl: str | None = None,
+                 row_offset=None) -> SearchState:
     """The shared loop: while a lane's first unstable entry among its first
     ``stable_limit`` exists, scores at least ``min_value`` and the lane has
     taken fewer than ``max_steps`` steps, expand it. The limits broadcast
-    over the lanes."""
+    over the lanes; ``row_offset`` [B] places each lane's graph in a
+    stacked corpus (node v of lane b is row ``v + row_offset[b]``).
+
+    The loop works on the queues' occupied prefix: past its valid entries a
+    sorted queue holds only the empty sentinel, and a step adds at most M0
+    entries, so the first W slots (a power of two above the valid entries
+    plus one step's) evolve exactly as the whole queue does. W widens as
+    the queues fill; a queue sized for a whole shard (``sharded_search``'s
+    resumable beams) is then never sorted at its full capacity."""
     ids, scores, stable = state.queue
     visited, steps = state.visited.clone(), state.steps.clone()
-    B = ids.shape[0]
+    B, C = ids.shape
+    m0 = neighbors.shape[1]
     dev = ids.device
     lanes = torch.arange(B, device=dev)
     compressed = quant.is_quantized(vectors)
@@ -78,7 +96,17 @@ def _search_loop(vectors, neighbors, qs, state: SearchState, stable_limit,
     min_value = torch.as_tensor(min_value, dtype=torch.float32,
                                 device=dev).expand(B)
     max_steps = torch.as_tensor(max_steps, device=dev).expand(B)
+    off = (None if row_offset is None else
+           torch.as_tensor(row_offset, dtype=torch.int64, device=dev))
+    n_valid = int((ids >= 0).sum(dim=-1).max()) if B else 0
+    W = _occupied_width(n_valid + m0, C)
+    ids, scores, stable = ids[:, :W], scores[:, :W], stable[:, :W]
     while True:
+        if n_valid + m0 > W:   # a bound: recount, widen if it holds
+            n_valid = int((ids >= 0).sum(dim=-1).max())
+            if n_valid + m0 > W:
+                W = _occupied_width(n_valid + m0, C)
+                ids, scores, stable = qmod.grow(Queue(ids, scores, stable), W)
         p, exists = qmod.first_unstable(Queue(ids, scores, stable),
                                         stable_limit)
         run = exists & (scores[lanes, p] >= min_value) & (steps < max_steps)
@@ -88,13 +116,16 @@ def _search_loop(vectors, neighbors, qs, state: SearchState, stable_limit,
         marked = stable.clone()
         marked[lanes, p] = stable[lanes, p] | run
         visited[lanes, node] = visited[lanes, node] | run
-        nbrs = neighbors[node]                                  # [B, M0]
+        nbrs = neighbors[node if off is None else node + off]   # [B, M0]
         safe = nbrs.clamp(min=0)
         fresh = (nbrs >= 0) & ~visited[lanes[:, None], safe.long()]
+        rows = safe if off is None else safe + off[:, None]
         if compressed:
-            sims = quant.score_rows(qprep, vectors, safe, metric)
+            sims = quant.score_rows(qprep, vectors, rows, metric)
         else:
-            sims = kops.batch_similarity_gather(qs, vectors, nbrs, metric,
+            gather = nbrs if off is None else torch.where(
+                nbrs >= 0, rows, -1).to(torch.int32)
+            sims = kops.batch_similarity_gather(qs, vectors, gather, metric,
                                                 impl)
         new = qmod.insert(Queue(ids, scores, marked), nbrs, sims, fresh)
         r = run[:, None]
@@ -102,19 +133,42 @@ def _search_loop(vectors, neighbors, qs, state: SearchState, stable_limit,
         scores = torch.where(r, new.scores, scores)
         stable = torch.where(r, new.stable, stable)
         steps = steps + run.to(torch.int32)
-    return SearchState(Queue(ids, scores, stable), visited, steps)
+        n_valid += m0
+    queue = Queue(ids, scores, stable)
+    return SearchState(qmod.grow(queue, C) if W < C else queue, visited,
+                       steps)
 
 
 def run_search(graph: FlatGraph, qs: torch.Tensor, state: SearchState,
                stable_limit, min_value=float("-inf"), max_steps=None,
-               impl: str | None = None) -> SearchState:
+               impl: str | None = None, row_offset=None) -> SearchState:
     """Run every lane's loop from ``state`` to its stop; ``max_steps``
     defaults to ``4 * capacity + 64``, as in the reference."""
     if max_steps is None:
         max_steps = 4 * state.queue.capacity + 64
     return _search_loop(graph.vectors, graph.neighbors, qs, state,
                         stable_limit, min_value, max_steps, graph.metric,
-                        impl)
+                        impl, row_offset)
+
+
+def resume_search(graph: FlatGraph, qs: torch.Tensor, state: SearchState,
+                  stable_limit, min_value=float("-inf"), step_budget=None,
+                  impl: str | None = None, row_offset=None) -> SearchState:
+    """Resume a previous ``run_search`` under a continued stable limit.
+
+    The queue and visited set carry over, so earlier expansions are never
+    redone; ``step_budget`` (default ``4 * capacity + 64``) is added to the
+    steps each lane has already taken, so a resumed round gets the
+    allowance a fresh one would. The reference's widening contract holds
+    (``repro.core.beam_search.resume_search``): a queue at least
+    ``stable_limit`` wide, or as wide as the graph, evolves its leading
+    prefix as any wider queue would."""
+    if step_budget is None:
+        step_budget = 4 * state.queue.capacity + 64
+    max_steps = state.steps + torch.as_tensor(step_budget, dtype=torch.int32,
+                                              device=state.steps.device)
+    return run_search(graph, qs, state, stable_limit, min_value, max_steps,
+                      impl, row_offset)
 
 
 def beam_search(graph: FlatGraph, q: torch.Tensor, k: int, L: int,

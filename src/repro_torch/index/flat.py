@@ -79,15 +79,24 @@ def exact_rerank(queries, cand_ids, x, metric: str,
     qs = torch.atleast_2d(_tensor(queries, dev))
     ids = _tensor(cand_ids, dev, torch.int32)
     xt = _tensor(x, dev)
+    ids, sims, _ = rerank_rows(qs, ids, xt[ids.clamp(min=0).long()], metric)
+    return ids.cpu().numpy(), sims.cpu().numpy()
+
+
+def rerank_rows(qs: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
+                metric: str):
+    """``exact_rerank`` of candidates whose float rows are gathered already:
+    ``rows`` f32[B, K, d] holds ``x[max(ids, 0)]``. Returns the reranked
+    ``(ids, scores)`` and the permutation ``order`` int64[B, K] that took
+    each row's candidates there, as tensors on ``ids``'s device."""
     valid = ids >= 0
-    sims = query_sim(qs[:, None, :], xt[ids.clamp(min=0).long()], metric)
+    sims = query_sim(qs[:, None, :], rows, metric)
     sims = torch.where(valid, sims, float("-inf"))
     by_id = torch.sort(ids, dim=1, stable=True).indices
     by_score = torch.sort(torch.gather(sims, 1, by_id), dim=1,
                           descending=True, stable=True).indices
     order = torch.gather(by_id, 1, by_score)
-    return (torch.gather(ids, 1, order).cpu().numpy(),
-            torch.gather(sims, 1, order).cpu().numpy())
+    return torch.gather(ids, 1, order), torch.gather(sims, 1, order), order
 
 
 def _norm_terms(x: np.ndarray, metric: str) -> np.ndarray | None:

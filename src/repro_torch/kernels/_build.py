@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 CHECKOUT = Path(__file__).resolve().parents[3]   # <root>/src/repro_torch/kernels
 BUILD_DIR = CHECKOUT / "build" / "torch_ext"
 SOURCES = ("batch_similarity", "pairwise_adjacency", "greedy_diversify",
-           "fused_round", "int8_dot", "pq_lut_sum")
+           "fused_round", "int8_dot", "pq_lut_sum", "topk_merge")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LIBS: dict[str, ctypes.CDLL] = {}

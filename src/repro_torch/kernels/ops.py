@@ -7,10 +7,11 @@ impl resolution, at call time:
   * "ref": the plain PyTorch oracle (``kernels/ref.py``) on any device.
 
 Nothing falls back quietly: a kernel that fails to build or launch raises.
-The ops of the batched engine come in the batched forms the engine calls,
-and ``quantized_similarity_many`` scores compressed corpora; the
-single-lane ``pairwise_adjacency`` / ``greedy_diversify`` (for the
-per-query drivers) and ``topk_merge`` come with later slices.
+The ops come in the batched forms their callers use: the engine's lane
+batches, ``quantized_similarity_many`` for compressed corpora, and
+``topk_merge`` over the rows of a tournament round.
+The single-lane ``pairwise_adjacency`` / ``greedy_diversify`` (for the
+per-query drivers) come with a later slice.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.kernels.greedy_diversify import greedy_cuda
 from repro_torch.kernels.int8_similarity import int8_dot_cuda
 from repro_torch.kernels.pairwise_adjacency import adjacency_raw_cuda
 from repro_torch.kernels.pq_lut_similarity import pq_lut_sum_cuda
+from repro_torch.kernels.topk_merge import topk_merge_cuda
 
 _DEFAULT_IMPL = None  # overridable via set_default_impl
 _IMPLS = ("auto", "ref", "cuda")
@@ -56,7 +58,8 @@ KERNELS = {"batch_similarity_many": sim_many_cuda,
            "greedy_diversify": greedy_cuda,
            "fused_round": fused_round_cuda,
            "int8_dot": int8_dot_cuda,
-           "pq_lut_sum": pq_lut_sum_cuda}
+           "pq_lut_sum": pq_lut_sum_cuda,
+           "topk_merge": topk_merge_cuda}
 
 
 def launch_counts() -> dict[str, int]:
@@ -187,3 +190,17 @@ def fused_round_batch(vectors: torch.Tensor, ids, scores, Ks, eps, k: int,
     sel_ids, _ = _ref.extract_round(sel, ids_m, scores_m)
     count = torch.sum(sel >= 0, dim=1).to(torch.int32)
     return sel_ids, selsc, count, _ref.certificate(selsc, ids_m, scores_m)
+
+
+def topk_merge(ids_a: torch.Tensor, scores_a: torch.Tensor,
+               ids_b: torch.Tensor, scores_b: torch.Tensor,
+               impl: str | None = None):
+    """Merge two runs [..., L] sorted by (score desc, id asc), row by row,
+    and keep the top L of each: -> (ids int32[..., L], scores f32[..., L]).
+    On the kernel rung one launch merges every row."""
+    if resolve(impl, scores_a) == "ref":
+        return _ref.topk_merge(ids_a, scores_a, ids_b, scores_b)
+    lead, L = ids_a.shape[:-1], ids_a.shape[-1]
+    ids, scores = topk_merge_cuda(*(t.reshape(-1, L).contiguous() for t in (
+        _i32(ids_a), _f32(scores_a), _i32(ids_b), _f32(scores_b))))
+    return ids.reshape(*lead, L), scores.reshape(*lead, L)

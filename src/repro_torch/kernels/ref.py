@@ -1,10 +1,9 @@
 """Plain PyTorch versions of the port's kernels: the port's oracle.
 
-Port of ``repro.kernels.ref`` for the ops of the batched engine and the
-compressed-corpus scorers, composed as the reference composes them. Each
-takes optional leading lane axes where the reference is vmapped. The CUDA
-kernels are held against these on the card; on a CPU tensor ``kernels.ops``
-runs these and nothing else. ``topk_merge`` comes with the mesh slice.
+Port of ``repro.kernels.ref``, composed as the reference composes each
+function. Each takes optional leading lane axes where the reference is
+vmapped. The CUDA kernels are held against these on the card; on a CPU
+tensor ``kernels.ops`` runs these and nothing else.
 """
 from __future__ import annotations
 
@@ -84,6 +83,29 @@ def strip_adjacency(raw: torch.Tensor,
     if valid is not None:
         adj = adj & valid[..., :, None] & valid[..., None, :]
     return adj
+
+
+def sort_top(ids: torch.Tensor, scores: torch.Tensor, L: int):
+    """The first ``L`` entries of each row of (ids, scores) [..., n] in
+    (score desc, id asc) order, ties on both keys in row order: the
+    reference's ``jnp.lexsort((ids, -scores))``, taken as two stable sorts,
+    id first. The sort key is ``scores + 0.0``, so -0.0 and +0.0 tie on any
+    device (a radix sort would order their bit patterns); the scores
+    returned are the inputs' own."""
+    o1 = torch.sort(ids, dim=-1, stable=True).indices
+    key = torch.gather(scores + 0.0, -1, o1)
+    o2 = torch.sort(key, dim=-1, descending=True, stable=True).indices
+    order = torch.gather(o1, -1, o2)[..., :L]
+    return torch.gather(ids, -1, order), torch.gather(scores, -1, order)
+
+
+def topk_merge(ids_a: torch.Tensor, scores_a: torch.Tensor,
+               ids_b: torch.Tensor, scores_b: torch.Tensor):
+    """Merge two descending-sorted (ids, scores) runs [..., L] and keep the
+    top L under (score desc, id asc), ties on both keys run a first: the
+    tournament-merge primitive of the sharded search."""
+    return sort_top(torch.cat([ids_a, ids_b], -1),
+                    torch.cat([scores_a, scores_b], -1), ids_a.shape[-1])
 
 
 def greedy_diversify(scores: torch.Tensor, adj: torch.Tensor, k: int,

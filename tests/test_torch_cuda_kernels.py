@@ -116,3 +116,72 @@ def test_cuda_quantized_kernels_equal_plain_versions(cuda_device, n, d):
         pq_lut_sum_cuda(torch.zeros((1, 2, 4), device=cuda_device),
                         torch.full((3, 2), 4, dtype=torch.uint8,
                                    device=cuda_device))
+
+
+def _merge_runs(R, L, seed):
+    """Two runs a row, [R, L] each, sorted by (score desc, id asc): ids
+    drawn per row from [0, 4L) (the runs share ids), scores from nine
+    values with about a third zeros, half of those -0.0, and a (-1, -inf)
+    padding tail of random length; row 0 of run b is all padding."""
+    rng = np.random.default_rng(seed)
+    runs = []
+    for r_ in range(2):
+        ids = np.argsort(rng.random((R, 4 * L)), axis=1)[:, :L].astype(np.int32)
+        sc = (rng.integers(-4, 5, (R, L)) * 0.5).astype(np.float32)
+        sc[rng.random((R, L)) < 0.3] = 0.0
+        sc[rng.random((R, L)) < 0.5] *= -1.0
+        npad = rng.integers(0, L // 4 + 1, R)
+        if r_ == 1:
+            npad[0] = L
+        for row in range(R):
+            order = np.lexsort((ids[row], -sc[row]))
+            ids[row], sc[row] = ids[row][order], sc[row][order]
+            ids[row, L - npad[row]:] = -1
+            sc[row, L - npad[row]:] = -np.inf
+        runs.append((ids, sc))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 10, 32, 100, 128, 1000, 4096])
+def test_cuda_topk_merge_equals_plain_version(cuda_device, L):
+    """64 rows (4 shards x 16 lanes) of a tournament round, ragged L
+    included: ids and score bits equal (a -0.0 stays -0.0)."""
+    (ia, sa), (ib, sb) = _merge_runs(64, L, seed=L)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (ia, sa, ib, sb)]
+    gi, gs = tops.topk_merge(*args, impl="cuda")
+    ri, rs = tops.topk_merge(*args, impl="ref")
+    assert torch.equal(gi, ri)
+    assert torch.equal(gs.view(torch.int32), rs.view(torch.int32))
+    # over leading axes [P, B, L], as the tournament calls it
+    gi3, _ = tops.topk_merge(*(a.reshape(4, 16, L) for a in args),
+                             impl="cuda")
+    assert torch.equal(gi3.reshape(64, L), ri)
+
+
+@pytest.mark.cuda
+def test_cuda_occupied_prefix_equals_whole_queue(cuda_device, monkeypatch):
+    """The sharded path on the card (4 shards of 2 000 rows, resumable
+    queues of 2 048 slots): the beam loop on each queue's occupied prefix
+    and forced to the whole queue give equal ids, score bits, certificates
+    and budgets."""
+    from repro_torch import sharded_search as ss
+    from repro_torch.compat import make_mesh
+    from repro_torch.core import beam_search as bs
+
+    x = _corpus(7, n=8000, d=24)
+    qs = _corpus(8, n=8, d=24)
+    index = ss.build_sharded_index(x, 4, "ip", M=8, device=cuda_device)
+    mesh = make_mesh((4,), ("data",), device=cuda_device)
+
+    def run():
+        return ss.sharded_progressive_diverse(index, x, qs, 8, 5.0, mesh,
+                                              K0=16, resume="beam")
+
+    prefix = run()
+    monkeypatch.setattr(bs, "_occupied_width", lambda n, capacity: capacity)
+    whole = run()
+    ids, scores, cert, K_final = prefix
+    for got, want in zip((ids, scores.view(np.int32), cert, K_final),
+                         (whole[0], whole[1].view(np.int32), *whole[2:])):
+        np.testing.assert_array_equal(got, want)
