@@ -14,9 +14,18 @@ Phases:
 3. Kernels against their plain versions, on the card, at the main path's
    shapes, for l2/ip/cos: the burst's gathered scoring (16 lanes x 32
    rows), the rebuild's corpus scoring (16 x n), and adjacency / greedy /
-   fused round at W in {64, 256, 1024}, k = 10. Integer outputs must be
-   equal on inputs kept tie-free; float outputs within 1e-5. Times are CUDA
-   events, median of 20 runs.
+   fused round at W in {64, 256, 1024}, k = 10. The two similarity kernels
+   must equal their plain versions bit for bit, and each other (a gathered
+   score is the corpus score's column; one lane's corpus scores are its row
+   of the batch's); the other integer outputs must be equal on inputs kept
+   tie-free; the fused round's float output within 1e-5. Times are CUDA
+   events, median of 20 runs; the gathered scoring draws fresh random ids
+   for every launch, so its rows come cold from device memory, as in the
+   burst. Each kernel's device time per call (``device_us``) is the
+   duration of the kernels 20 calls launched under torch.profiler, over the
+   recorded launches of the kernel itself (the gathered scoring's: its
+   launches in phase 4's profiled lockstep batch); ``host_us`` is the rest
+   of the event time, the wrapper's host work.
 4. The main path at Deep1M's shape: n = 1,000,000 seeded deep-like vectors
    of d = 96 (l2), a KNN graph with M = 16 built on the card, eps
    calibrated to an expected G^eps degree of 100. A ``ProgressiveEngine``
@@ -90,6 +99,7 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12      # H100 SXM float32 outside the tensor cores
 PEAK_INT8_OP_S = 1979e12     # H100 SXM int8 tensor cores, dense
 RTOL = ATOL = 1e-5
+FRESH_IDS = 256   # pregenerated id sets: one per timed gathered launch
 # the main path's configuration; only the data seed, the corpus size (the
 # stated cut, if one is needed) and the query count are arguments
 D, M_GRAPH, LANES, K, EF, PHI, RERUN = 96, 16, 16, 10, 40, 100.0, 8
@@ -146,6 +156,53 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
+def device_us(torch, fn, primary: str,
+              reps: int = 20) -> tuple[float | None, dict[str, int]]:
+    """Device time per call of ``fn()`` in microseconds, from ``reps`` calls
+    under torch.profiler after a warm-up: the summed duration of every
+    kernel they launched over the recorded launches of ``primary`` (the
+    kernel named so launches once a call). After heavy device work the
+    profiler drops some or all of a short session's events, erratically;
+    this ratio does not depend on how many it kept, and a session that kept
+    none of ``primary`` is run again, up to three in all. None if none
+    kept any. Also the recorded launches by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(primary in e.name for e in kernels):
+            break
+    names: dict[str, int] = {}
+    for e in kernels:
+        names[e.name[:80]] = names.get(e.name[:80], 0) + 1
+    calls = sum(1 for e in kernels if primary in e.name)
+    total = sum(e.device_time_total for e in kernels)
+    return (total / calls if calls else None), names
+
+
+def host_us(ms: float, dev_us: float | None) -> float | None:
+    """The part of a call's event time that is not its kernels' device
+    time: the wrapper's host work and the launch, in microseconds."""
+    return None if dev_us is None else ms * 1e3 - dev_us
+
+
+def assert_bits_equal(torch, got, want, what: str) -> None:
+    """Equal float32 bit patterns, or an AssertionError naming ``what``."""
+    bad = got.contiguous().view(torch.int32) != want.contiguous().view(
+        torch.int32)
+    if got.shape != want.shape or bool(bad.any()):
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} of {bad.numel()} scores differ in their "
+            f"bits (max {float((got - want).abs().max())})")
+
+
 def deep_like(torch, n: int, d: int, seed: int, device):
     """The repo's deep-like mixture (64 Gaussian centres, noise 0.7), made
     on the card from ``seed``."""
@@ -199,13 +256,22 @@ def check_kernels(torch, ops, sim, x, qs, seed, report):
         e = {}
         got = ops.batch_similarity_gather(qs, x, nbrs, metric, impl="cuda")
         ref = ops.batch_similarity_gather(qs, x, nbrs, metric, impl="ref")
-        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        assert_bits_equal(torch, got, ref, f"sim_gather ({metric})")
         e["batch_similarity_gather"] = float((got - ref).abs().max())
-        got = ops.batch_similarity(qs, x, metric, impl="cuda")
+        many = ops.batch_similarity(qs, x, metric, impl="cuda")
         ref = ops.batch_similarity(qs, x, metric, impl="ref")
-        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
-        e["batch_similarity_many"] = float((got - ref).abs().max())
-        del got, ref
+        assert_bits_equal(torch, many, ref, f"sim_many ({metric})")
+        e["batch_similarity_many"] = float((many - ref).abs().max())
+        # what the engine relies on: a pair scores the same bits in either
+        # entry point, and a lane's scores do not depend on the batch
+        assert_bits_equal(torch, got, torch.gather(
+            many, 1, nbrs.clamp(min=0).long()),
+            f"sim_gather against sim_many's columns ({metric})")
+        for b in range(B):
+            assert_bits_equal(torch, ops.batch_similarity(
+                qs[b:b + 1], x, metric, impl="cuda")[0], many[b],
+                f"sim_many of lane {b} alone ({metric})")
+        del got, ref, many
         for W in (64, 256, 1024):
             ids, scores, Ks, eps = tie_free_prefixes(
                 torch, sim, x, B, W, metric, seed + W, device)
@@ -258,15 +324,19 @@ def check_kernels(torch, ops, sim, x, qs, seed, report):
     t = {}
 
     def row(name, fn_k, fn_p, fn_lib, nbytes, flops, replaces, source,
-            max_err):
+            max_err, primary):
         ms, pms = time_ms(torch, fn_k), time_ms(torch, fn_p, reps=5)
         lib = None if fn_lib is None else time_ms(torch, fn_lib)
+        dev_us, names = device_us(torch, fn_k, primary)
         bms, by = bound_ms(nbytes, flops)
         t[name] = dict(name=name, route="cuda", source=source,
                        replaces=replaces, ms=ms, plain_ms=pms, bound_ms=bms,
-                       bound_by=by, library_ms=lib, max_abs_err=max_err)
-        log(f"time {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}), library {lib}")
+                       bound_by=by, library_ms=lib, max_abs_err=max_err,
+                       device_us=dev_us, host_us=host_us(ms, dev_us))
+        report.setdefault("device_loops", {})[name] = dict(
+            device_us=dev_us, kernels=names)
+        log(f"time {name}: kernel {ms:.4f} ms (device {dev_us} us), "
+            f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), library {lib}")
 
     csrc = "src/repro_torch/kernels/csrc/"
     maxerr = {name: max(errs[m][name] for m in errs)
@@ -277,27 +347,36 @@ def check_kernels(torch, ops, sim, x, qs, seed, report):
         lambda: torch.cdist(qs, x),
         4 * (n * d + B * d + B * n), 2 * B * n * d,
         "src/repro/kernels/batch_similarity.py:51",
-        csrc + "batch_similarity.cu", maxerr["batch_similarity_many"])
+        csrc + "batch_similarity.cu", maxerr["batch_similarity_many"],
+        "sim_many_kernel")
+    # fresh random ids for every timed launch: rows cold, as in the burst
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    fresh = iter([torch.randint(-1, n, (B, M), device=device,
+                                dtype=torch.int32, generator=g)
+                  for _ in range(FRESH_IDS)])
     row("batch_similarity_gather",
-        lambda: ops.batch_similarity_gather(qs, x, nbrs, "l2", impl="cuda"),
-        lambda: ops.batch_similarity_gather(qs, x, nbrs, "l2", impl="ref"),
+        lambda: ops.batch_similarity_gather(qs, x, next(fresh), "l2",
+                                            impl="cuda"),
+        lambda: ops.batch_similarity_gather(qs, x, next(fresh), "l2",
+                                            impl="ref"),
         None, 4 * (B * M * d + B * d + 2 * B * M), 2 * B * M * d,
         "src/repro/kernels/batch_similarity.py:51",
-        csrc + "batch_similarity.cu", maxerr["batch_similarity_gather"])
+        csrc + "batch_similarity.cu", maxerr["batch_similarity_gather"],
+        "sim_gather_kernel")
     row("pairwise_adjacency",
         lambda: ops.pairwise_adjacency_batch(x, ids, eps, "l2", impl="cuda"),
         lambda: ops.pairwise_adjacency_batch(x, ids, eps, "l2", impl="ref"),
         None, 4 * (int(nv.sum()) * d + B * W + B) + B * W * W,
         2 * pairs * d,
         "src/repro/kernels/pairwise_adjacency.py:46",
-        csrc + "pairwise_adjacency.cu", 0.0)
+        csrc + "pairwise_adjacency.cu", 0.0, "adjacency_kernel")
     row("greedy_diversify",
         lambda: ops.greedy_diversify_batch(scores, adj, k, valid, impl="cuda"),
         lambda: ops.greedy_diversify_batch(scores, adj, k, valid, impl="ref"),
         None, 4 * B * W + B * W + int(picks_g.sum()) * W + 4 * B * k,
         int(picks_g.sum()) * W,
         "src/repro/kernels/greedy_diversify.py:64",
-        csrc + "greedy_diversify.cu", 0.0)
+        csrc + "greedy_diversify.cu", 0.0, "greedy_kernel")
     row("fused_round",
         lambda: ops.fused_round_batch(x, ids, scores, Ks, eps, k, "l2",
                                       impl="cuda"),
@@ -307,7 +386,8 @@ def check_kernels(torch, ops, sim, x, qs, seed, report):
         2 * int((picks_f * npre).sum()) * d,
         "src/repro/kernels/fused_round.py:99",
         csrc + "fused_round.cu",
-        max(errs[m][f"fused_round_W{w}"] for m in errs for w in (64, 256, 1024)))
+        max(errs[m][f"fused_round_W{w}"] for m in errs for w in (64, 256, 1024)),
+        "fused_adj_kernel")
     return t
 
 
@@ -339,8 +419,9 @@ class StageTimer:
 def profile_batch(torch, ops, run, batch_wall_s, what):
     """``run()`` again under torch.profiler: the device's busy share of its
     unprofiled wall time, kernels per burst step (one gathered-scoring
-    launch a step), top kernels. Device activity only: a host-op trace of
-    ~100 ops per burst step takes minutes to parse."""
+    launch a step), top kernels, and the gathered scoring's launches and
+    device time by name. Device activity only: a host-op trace of ~100 ops
+    per burst step takes minutes to parse."""
     from torch.profiler import ProfilerActivity, profile
 
     ops.reset_launch_counts()
@@ -357,9 +438,12 @@ def profile_batch(torch, ops, run, batch_wall_s, what):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    gather = [e.device_time_total for e in kernels if "sim_gather" in e.name]
     out = dict(device_kernels=len(kernels), burst_steps=steps,
                kernels_per_step=len(kernels) / max(steps, 1),
                device_busy_s=busy_us / 1e6, batch_wall_s=batch_wall_s,
+               sim_gather_launches=len(gather),
+               sim_gather_device_s=sum(gather) / 1e6,
                device_idle_share=(1.0 - busy_us / 1e6 / batch_wall_s
                                   if busy_us else None),
                top_kernels_s=[(name[:80], us / 1e6) for name, us in top])
@@ -658,13 +742,15 @@ def compressed_path(torch, report, graph, qs_np, seed, device):
              PEAK_F32_FLOP_S, "src/repro/kernels/pq_lut_similarity.py:47")):
         ms, pms = time_ms(torch, fn_k), time_ms(torch, fn_p, reps=5)
         lms = None if fn_lib is None else time_ms(torch, fn_lib)
+        dev_us, _ = device_us(torch, fn_k, name + "_kernel")
         bms, by = bound_ms(nbytes, nops, peak)
         rows[name] = dict(name=name, route="cuda", source=csrc + name + ".cu",
                           replaces=replaces, ms=ms, plain_ms=pms,
                           bound_ms=bms, bound_by=by, library_ms=lms,
-                          max_abs_err=max(err[name], rerr[name]))
-        log(f"time {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by}), library {lms}")
+                          max_abs_err=max(err[name], rerr[name]),
+                          device_us=dev_us, host_us=host_us(ms, dev_us))
+        log(f"time {name}: kernel {ms:.4f} ms (device {dev_us} us), "
+            f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), library {lms}")
     for scheme, corpus in (("int8", c8), ("pq", pq)):
         whole[scheme] = time_ms(torch, lambda: ops.quantized_similarity_many(
             qs, corpus, "l2", impl="cuda"))
@@ -831,12 +917,16 @@ def check_topk_merge(torch, device, seed):
         if L in MERGE_TIMED:
             ms = time_ms(torch, lambda: topk_merge_cuda(*args))
             pms = time_ms(torch, lambda: plain(*args), reps=5)
+            dev_us, _ = device_us(torch, lambda: topk_merge_cuda(*args),
+                                  "topk_merge_kernel")
             # bytes: two runs read, one written; operations: each entry's
             # binary search, ~log2(L) + 1 comparisons of two keys
             bms, by = bound_ms(24 * R * L,
                                2 * R * L * 2 * (math.log2(L) + 1))
-            times[L] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
-            log(f"time topk_merge {R} x {L}: kernel {ms:.4f} ms, plain "
+            times[L] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                            device_us=dev_us, host_us=host_us(ms, dev_us))
+            log(f"time topk_merge {R} x {L}: kernel {ms:.4f} ms (device "
+                f"{dev_us} us), plain "
                 f"{pms:.4f} ms, bound {bms:.6f} ms ({by}), library none")
     log(f"topk_merge ok: {R} rows at L in {MERGE_LS}, ids and score bits "
         "equal")
@@ -1064,6 +1154,14 @@ def main() -> int:
     mrow, slaunches = sharded_path(torch, report, graph, qs_np, eps,
                                    args.seed, device)
     timings["topk_merge"] = mrow
+    # the gathered scoring's device time per launch as the burst meets it:
+    # its launches in phase 4's profiled lockstep batch
+    prof = report["main_path"]["profile"]
+    row = timings["batch_similarity_gather"]
+    row["device_us_fresh_ids"] = row["device_us"]
+    row["device_us"] = (prof["sim_gather_device_s"] * 1e6
+                        / prof["sim_gather_launches"]
+                        if prof["sim_gather_launches"] else None)
     # each kernel's launches over the three paths' runs (each path's own
     # counts are in chip_smoke.json)
     kernels = []

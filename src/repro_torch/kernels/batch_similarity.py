@@ -2,17 +2,28 @@
 
 Replaces the Pallas kernel ``batch_similarity_many_pallas``
 (``src/repro/kernels/batch_similarity.py:51``) in two shapes the engine
-needs: the growth rebuild's GEMM shape (every lane's query against the whole
-corpus, ``sim_many_cuda``) and the burst's gather-GEMV shape (each lane's
-query against the M0 neighbour rows of its expanded node, ``sim_gather_cuda``,
-with the row gather fused into the kernel).
+needs: the growth rebuild's corpus shape (every lane's query against the
+whole corpus, ``sim_many_cuda``) and the burst's gather shape (each lane's
+query against the M0 neighbour rows of its expanded node,
+``sim_gather_cuda``, with the row gather fused into the kernel).
 
-Bound on the card: the corpus shape reads N*d*4 bytes for B*N*d*2 flops
-(~1.4 flop per byte at B=16, d=96), so it is bound by bytes; each thread
-scores one corpus row against a register block of queries held in shared
-memory. The gather shape is a few hundred outputs: bound by its launch.
-Every output is reduced over d in one fixed sequential order, so scores do
-not depend on the batch size (see ``csrc/sim.cuh``).
+What bounds each on the card, and what the design does about it:
+
+- The corpus shape reads N*d*4 bytes for B*N*d*2 flops (~1.4 flop per
+  byte at B=16, d=96): bound by bytes. A persistent grid stages tiles of
+  consecutive rows into shared memory with ``cp.async`` in a two-stage
+  ring, so each row is read from device memory once, coalesced, while the
+  previous tile is scored; each thread scores one row against every query
+  of the launch (up to 16, broadcast from shared memory) in registers.
+- The gather shape is a few hundred outputs: bound by its launch. A grid of
+  (4-row chunk, lane) blocks spreads it over the SMs; each block copies its
+  rows and query into shared memory before any arithmetic and computes
+  each norm once.
+
+Every output is reduced over d in one fixed sequential order (``csrc/sim.cuh``),
+so scores do not depend on the batch or the entry point and equal the
+plain versions bit for bit. That order is why neither kernel uses the
+tensor cores, which sum over d in blocks.
 
 The plain versions are ``kernels.ref.batch_similarity`` (per-lane
 ``query_sim``) and ``kernels.ref.batch_similarity_gather``.

@@ -6,9 +6,11 @@ machine with a card and no JAX:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_kernels.py -q
 
 Without a card every test here skips. Tolerances: the similarity kernels
-reduce in ``dot_seq``'s order, so their scores agree with the plain version
-up to the metric transform's rounding (1e-5); every integer output, and the
-exact int8 dots and ordered LUT sums, must be equal.
+(``sim_many``, ``sim_gather``) reduce in ``dot_seq``'s order and round the
+metric transform as the plain version does, so their scores must equal it
+bit for bit, and each other; the fused round's float output agrees within
+1e-5; every integer output, and the exact int8 dots and ordered LUT sums,
+must be equal.
 """
 import numpy as np
 import pytest
@@ -50,6 +52,22 @@ def _prefixes(x, B, W, seed=1):
     return ids, scores, rng.integers(1, W + 1, B)
 
 
+def _assert_bits_equal(got, want):
+    """Equal float32 bit patterns (so -0.0 differs from +0.0)."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    bad = got.contiguous().view(torch.int32) != want.contiguous().view(torch.int32)
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} of {bad.numel()} scores differ, max "
+        f"{float((got - want).abs().max())}")
+
+
+def _gather_ids(rng, B, M, n):
+    """Random row ids [B, M] with a -1 in every lane (scored as row 0)."""
+    ids = rng.integers(-1, n, (B, M)).astype(np.int32)
+    ids[:, M // 2] = -1
+    return ids
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS)
 def test_cuda_kernels_match_plain_versions(cuda_device, metric):
@@ -62,15 +80,12 @@ def test_cuda_kernels_match_plain_versions(cuda_device, metric):
     rows = x[ids.clamp(min=0).long()]
     eps = torch.quantile(tsim.pairwise_sim(rows, rows, metric).flatten(1),
                          0.9, dim=1).contiguous()
-    np.testing.assert_allclose(
-        tops.batch_similarity(qs, x, metric, impl="cuda").cpu(),
-        tops.batch_similarity(qs, x, metric, impl="ref").cpu(), rtol=RTOL,
-        atol=ATOL)
+    _assert_bits_equal(tops.batch_similarity(qs, x, metric, impl="cuda"),
+                       tops.batch_similarity(qs, x, metric, impl="ref"))
     nb = ids.clamp(min=0)[:, :32].contiguous()
-    np.testing.assert_allclose(
-        tops.batch_similarity_gather(qs[:8], x, nb, metric, impl="cuda").cpu(),
-        tops.batch_similarity_gather(qs[:8], x, nb, metric, impl="ref").cpu(),
-        rtol=RTOL, atol=ATOL)
+    _assert_bits_equal(
+        tops.batch_similarity_gather(qs[:8], x, nb, metric, impl="cuda"),
+        tops.batch_similarity_gather(qs[:8], x, nb, metric, impl="ref"))
     adj_k = tops.pairwise_adjacency_batch(x, ids, eps, metric, impl="cuda")
     adj_r = tops.pairwise_adjacency_batch(x, ids, eps, metric, impl="ref")
     assert torch.equal(adj_k, adj_r) and bool(adj_k.any())
@@ -87,6 +102,68 @@ def test_cuda_kernels_match_plain_versions(cuda_device, metric):
             assert torch.equal(a, b)
         np.testing.assert_allclose(fk[3].cpu(), fr[3].cpu(), rtol=RTOL,
                                    atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [24, 30, 96, 128])
+def test_cuda_similarity_kernels_equal_plain_versions_bitwise(cuda_device,
+                                                              metric, d):
+    """sim_many and sim_gather against their plain versions, bit for bit, at
+    a ragged N = 100 003 and B in {1, 5, 16, 17} (17: two query chunks),
+    gathered ids with -1 at M = 1 and 32; and against each other, as the
+    engine needs: sim_gather[b, m] == sim_many[b, max(ids[b, m], 0)], and
+    sim_many of one lane is that lane's row of the batch's call. A copy of
+    the corpus at a base 4 bytes off 16-byte alignment takes the kernels'
+    4-byte copy path and must give the same bits."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batch_similarity import (sim_gather_cuda,
+                                                      sim_many_cuda)
+
+    n = 100_003
+    x = torch.from_numpy(_corpus(d, n=n, d=d)).to(cuda_device)
+    buf = torch.empty(n * d + 1, device=cuda_device)
+    x_off = buf[1:].view(n, d)
+    x_off.copy_(x)
+    qs_all = torch.from_numpy(_corpus(d + 1, n=17, d=d)).to(cuda_device)
+    rng = np.random.default_rng(d)
+    for B in (1, 5, 16, 17):
+        qs = qs_all[:B].contiguous()
+        many = sim_many_cuda(qs, x, metric)
+        _assert_bits_equal(many, ref.batch_similarity(qs, x, metric))
+        for b in range(B):
+            _assert_bits_equal(sim_many_cuda(qs[b:b + 1].contiguous(), x,
+                                             metric)[0], many[b])
+        _assert_bits_equal(sim_many_cuda(qs, x_off, metric), many)
+        for M in (1, 32):
+            ids = torch.from_numpy(_gather_ids(rng, B, M, n)).to(cuda_device)
+            got = sim_gather_cuda(qs, x, ids, metric)
+            _assert_bits_equal(got, ref.batch_similarity_gather(qs, x, ids,
+                                                                metric))
+            _assert_bits_equal(got, torch.gather(many, 1,
+                                                 ids.clamp(min=0).long()))
+            _assert_bits_equal(sim_gather_cuda(qs, x_off, ids, metric), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_gather_at_the_sharded_width_bitwise(cuda_device, metric):
+    """sim_gather at B x M = 64 x 32 (4 shards x 16 lanes, M0 = 32), d = 96:
+    equal bits to its plain version and to sim_many's gathered columns
+    (sim_many at B = 64 runs four query chunks)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batch_similarity import (sim_gather_cuda,
+                                                      sim_many_cuda)
+
+    n = 100_003
+    x = torch.from_numpy(_corpus(5, n=n, d=96)).to(cuda_device)
+    qs = torch.from_numpy(_corpus(6, n=64, d=96)).to(cuda_device)
+    ids = torch.from_numpy(_gather_ids(np.random.default_rng(7), 64, 32,
+                                       n)).to(cuda_device)
+    got = sim_gather_cuda(qs, x, ids, metric)
+    _assert_bits_equal(got, ref.batch_similarity_gather(qs, x, ids, metric))
+    many = sim_many_cuda(qs, x, metric)
+    _assert_bits_equal(got, torch.gather(many, 1, ids.clamp(min=0).long()))
 
 
 @pytest.mark.cuda

@@ -9,6 +9,7 @@ import torch
 from repro.core.batch_progressive import _batched_adjacency
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 # tiny tensors: one intra-op thread keeps parallel test workers from
 # oversubscribing the cores
@@ -74,6 +75,29 @@ def test_batch_similarity_gather_matches_per_lane_reference(metric):
             jnp.asarray(qs[b]), jnp.asarray(x[np.maximum(ids[b], 0)]), metric,
             impl="ref"))
         np.testing.assert_allclose(got[b], ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [24, 30, 96])
+def test_plain_gather_equals_corpus_columns_bitwise(metric, d):
+    """The equalities the CUDA similarity kernels are held to on the card,
+    here on their plain versions: the gathered scores (ids of -1 score row
+    0, M = 1 and M = 12) equal the gathered columns of the corpus scores bit
+    for bit, and the corpus scores do not depend on the batch around a
+    lane."""
+    x = torch.from_numpy(_corpus(d, n=200, d=d))
+    qs = torch.from_numpy(_corpus(d + 1, n=5, d=d))
+    ids = np.random.default_rng(d).integers(-1, 200, (5, 12)).astype(np.int32)
+    ids[:, 3] = -1
+    ids = torch.from_numpy(ids)
+    many = tref.batch_similarity(qs, x, metric)
+    for m in (ids[:, :1], ids):
+        got = tref.batch_similarity_gather(qs, x, m.contiguous(), metric)
+        want = torch.gather(many, 1, m.clamp(min=0).long())
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for b in range(qs.shape[0]):
+        lane = tref.batch_similarity(qs[b:b + 1], x, metric)[0]
+        assert torch.equal(lane.view(torch.int32), many[b].view(torch.int32))
 
 
 @pytest.mark.parametrize("metric", METRICS)
