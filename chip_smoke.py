@@ -18,14 +18,16 @@ Phases:
    must equal their plain versions bit for bit, and each other (a gathered
    score is the corpus score's column; one lane's corpus scores are its row
    of the batch's); the other integer outputs must be equal on inputs kept
-   tie-free; the fused round's float output within 1e-5. Times are CUDA
+   tie-free, and the fused round's certificate bit for bit. Times are CUDA
    events, median of 20 runs; the gathered scoring draws fresh random ids
    for every launch, so its rows come cold from device memory, as in the
-   burst. Each kernel's device time per call (``device_us``) is the
-   duration of the kernels 20 calls launched under torch.profiler, over the
-   recorded launches of the kernel itself (the gathered scoring's: its
-   launches in phase 4's profiled lockstep batch); ``host_us`` is the rest
-   of the event time, the wrapper's host work.
+   burst. The adjacency must also equal its own transpose. Each kernel's
+   device time per call (``device_us``) is the duration of the kernels 20
+   calls launched under torch.profiler, over the launches of the kernel
+   itself that the profiler recorded with a duration, at least 10 of them
+   (``device_us_kept``; the gathered scoring's: its launches in phase 4's
+   profiled lockstep batch); ``host_us`` is the rest of the event time, the
+   wrapper's host work.
 4. The main path at Deep1M's shape: n = 1,000,000 seeded deep-like vectors
    of d = 96 (l2), a KNN graph with M = 16 built on the card, eps
    calibrated to an expected G^eps degree of 100. A ``ProgressiveEngine``
@@ -76,6 +78,13 @@ Phases:
    through ``sharded_progressive_diverse`` on the plain versions must give
    the same ids and certificates.
 
+After phase 6: how many launches of pairwise_adjacency, fused_round and
+greedy_diversify ran at each (lanes, width) in phases 4 and 6, read from the
+engines' ``SignatureLog.counts`` (lanes as the log rounds them, to a power
+of two), and the adjacency and the fused round timed again at their most
+frequent shape (on phase 4's corpus). The ``ptxas -v`` summary (registers,
+spills, shared memory) of those two kernels is printed after the build.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Any failure exits non-zero before the last line.
@@ -117,6 +126,10 @@ PATH6_KERNELS = ("topk_merge", "batch_similarity_gather", "pairwise_adjacency")
 # phase 6: the sharded path (ShardedEngine's defaults)
 SHARDS, SH_L, SH_KDIV, K0, L_FACTOR, MAX_ROUNDS = 4, 40, 32, 32, 4, 8
 MERGE_ROWS, MERGE_LS, MERGE_TIMED = 64, (10, 32, 128, 1000, 4096), (32, 4096)
+# the engines' signature kinds that launch a kernel, one launch a signature
+SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
+               "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
+PTXAS_SOURCES = ("pairwise_adjacency", "fused_round")
 
 
 T0 = time.perf_counter()
@@ -156,16 +169,18 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def device_us(torch, fn, primary: str,
-              reps: int = 20) -> tuple[float | None, dict[str, int]]:
+def device_us(torch, fn, primary: str, reps: int = 20
+              ) -> tuple[float | None, dict[str, int], int]:
     """Device time per call of ``fn()`` in microseconds, from ``reps`` calls
     under torch.profiler after a warm-up: the summed duration of every
-    kernel they launched over the recorded launches of ``primary`` (the
-    kernel named so launches once a call). After heavy device work the
-    profiler drops some or all of a short session's events, erratically;
-    this ratio does not depend on how many it kept, and a session that kept
-    none of ``primary`` is run again, up to three in all. None if none
-    kept any. Also the recorded launches by kernel name."""
+    kernel they launched over the launches of ``primary`` (the kernel named
+    so launches once a call), counting only events the profiler recorded
+    with a duration. After heavy device work the profiler drops some of a
+    short session's events or keeps them with no duration, erratically; a
+    session that kept fewer than reps / 2 timed launches of ``primary`` is
+    run again, up to three in all, and the time is None if none did.
+    Also the timed launches by kernel name, and how many of ``primary``
+    were kept."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -176,15 +191,16 @@ def device_us(torch, fn, primary: str,
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if any(primary in e.name for e in kernels):
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.device_time_total > 0]
+        kept = sum(1 for e in kernels if primary in e.name)
+        if 2 * kept >= reps:
             break
     names: dict[str, int] = {}
     for e in kernels:
         names[e.name[:80]] = names.get(e.name[:80], 0) + 1
-    calls = sum(1 for e in kernels if primary in e.name)
     total = sum(e.device_time_total for e in kernels)
-    return (total / calls if calls else None), names
+    return (total / kept if 2 * kept >= reps else None), names, kept
 
 
 def host_us(ms: float, dev_us: float | None) -> float | None:
@@ -282,6 +298,9 @@ def check_kernels(torch, ops, sim, x, qs, seed, report):
             if not torch.equal(adj_k, adj_r):
                 raise AssertionError(f"adjacency differs ({metric}, W={W}): "
                                      f"{int((adj_k != adj_r).sum())} edges")
+            if not torch.equal(adj_k, adj_k.transpose(1, 2)):
+                raise AssertionError(f"adjacency not symmetric ({metric}, "
+                                     f"W={W})")
             valid = ids >= 0
             gk = ops.greedy_diversify_batch(scores, adj_r, k, valid, impl="cuda")
             gr = ops.greedy_diversify_batch(scores, adj_r, k, valid, impl="ref")
@@ -291,10 +310,9 @@ def check_kernels(torch, ops, sim, x, qs, seed, report):
                                        impl="cuda")
             fr = ops.fused_round_batch(x, ids, scores, Ks, eps, k, metric,
                                        impl="ref")
-            for a, b in zip(fk[:3], fr[:3]):
+            for a, b in zip(fk, fr):
                 if not torch.equal(a, b):
                     raise AssertionError(f"fused round differs ({metric}, W={W})")
-            torch.testing.assert_close(fk[3], fr[3], rtol=RTOL, atol=ATOL)
             e[f"fused_round_W{W}"] = float(
                 (fk[3] - fr[3]).abs().nan_to_num(0.0).max())
             e[f"edges_W{W}"] = int(adj_r.sum())
@@ -308,31 +326,21 @@ def check_kernels(torch, ops, sim, x, qs, seed, report):
     adj = ops.pairwise_adjacency_batch(x, ids, eps, "l2", impl="ref")
     valid = ids >= 0
     W = ids.shape[1]
-    # the work each function needs on this data: adjacency, the sims of
-    # the valid pairs (one triangle: sim is symmetric); greedy, the k picked
-    # adjacency rows; the fused round, the picked rows of G^eps over each
-    # lane's valid prefix (Ks)
-    nv = valid.sum(1).to(torch.int64)
-    pairs = int((nv * (nv - 1) // 2).sum())
     picks_g = ops.greedy_diversify_batch(scores, adj, k, valid,
                                          impl="ref")[1].to(torch.int64)
-    in_prefix = valid & (torch.arange(W, device=device)[None, :]
-                         < Ks[:, None])
-    npre = in_prefix.sum(1).to(torch.int64)
-    picks_f = ops.fused_round_batch(x, ids, scores, Ks, eps, k, "l2",
-                                    impl="ref")[2].to(torch.int64)
     t = {}
 
     def row(name, fn_k, fn_p, fn_lib, nbytes, flops, replaces, source,
             max_err, primary):
         ms, pms = time_ms(torch, fn_k), time_ms(torch, fn_p, reps=5)
         lib = None if fn_lib is None else time_ms(torch, fn_lib)
-        dev_us, names = device_us(torch, fn_k, primary)
+        dev_us, names, kept = device_us(torch, fn_k, primary)
         bms, by = bound_ms(nbytes, flops)
         t[name] = dict(name=name, route="cuda", source=source,
                        replaces=replaces, ms=ms, plain_ms=pms, bound_ms=bms,
                        bound_by=by, library_ms=lib, max_abs_err=max_err,
-                       device_us=dev_us, host_us=host_us(ms, dev_us))
+                       device_us=dev_us, device_us_kept=kept,
+                       host_us=host_us(ms, dev_us))
         report.setdefault("device_loops", {})[name] = dict(
             device_us=dev_us, kernels=names)
         log(f"time {name}: kernel {ms:.4f} ms (device {dev_us} us), "
@@ -366,8 +374,7 @@ def check_kernels(torch, ops, sim, x, qs, seed, report):
     row("pairwise_adjacency",
         lambda: ops.pairwise_adjacency_batch(x, ids, eps, "l2", impl="cuda"),
         lambda: ops.pairwise_adjacency_batch(x, ids, eps, "l2", impl="ref"),
-        None, 4 * (int(nv.sum()) * d + B * W + B) + B * W * W,
-        2 * pairs * d,
+        None, *adjacency_work(ids, d),
         "src/repro/kernels/pairwise_adjacency.py:46",
         csrc + "pairwise_adjacency.cu", 0.0, "adjacency_kernel")
     row("greedy_diversify",
@@ -382,13 +389,38 @@ def check_kernels(torch, ops, sim, x, qs, seed, report):
                                       impl="cuda"),
         lambda: ops.fused_round_batch(x, ids, scores, Ks, eps, k, "l2",
                                       impl="ref"),
-        None, 4 * (int(npre.sum()) * (d + 2) + 2 * B + 2 * B * k),
-        2 * int((picks_f * npre).sum()) * d,
+        None, *fused_round_work(torch, ops, x, ids, scores, Ks, eps, k),
         "src/repro/kernels/fused_round.py:99",
         csrc + "fused_round.cu",
         max(errs[m][f"fused_round_W{w}"] for m in errs for w in (64, 256, 1024)),
-        "fused_adj_kernel")
+        "fused_round_kernel")
     return t
+
+
+def adjacency_work(ids, d: int) -> tuple[int, int]:
+    """Bytes and flops the adjacency needs on these lanes: the valid rows,
+    ids and eps in, G*W*W bools out; the sims of the valid pairs, one
+    triangle (sim is symmetric), 2d flops each."""
+    G, W = ids.shape
+    nv = (ids >= 0).sum(1).long()
+    pairs = int((nv * (nv - 1) // 2).sum())
+    return 4 * (int(nv.sum()) * d + G * W + G) + G * W * W, 2 * pairs * d
+
+
+def fused_round_work(torch, ops, x, ids, scores, Ks, eps,
+                     k: int) -> tuple[int, int]:
+    """Bytes and flops the fused round needs on these lanes: each lane's
+    valid prefix (rows, ids, scores), Ks, eps and the outputs (sel_ids,
+    selsc, count, cert); the sims of each pick against the lane's valid
+    prefix."""
+    B, W = ids.shape
+    d = x.shape[1]
+    col = torch.arange(W, device=ids.device)[None, :]
+    npre = ((ids >= 0) & (col < Ks[:, None])).sum(1).long()
+    picks = ops.fused_round_batch(x, ids, scores, Ks, eps, k, "l2",
+                                  impl="ref")[2].long()
+    return (4 * (int(npre.sum()) * (d + 2) + 2 * B + 2 * B * k + 3 * B),
+            2 * int((picks * npre).sum()) * d)
 
 
 # ------------------------------------------------------------- phase 4 ----
@@ -438,7 +470,9 @@ def profile_batch(torch, ops, run, batch_wall_s, what):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    gather = [e.device_time_total for e in kernels if "sim_gather" in e.name]
+    # the gathered scoring's launches that the profiler kept with a duration
+    gather = [e.device_time_total for e in kernels
+              if "sim_gather" in e.name and e.device_time_total > 0]
     out = dict(device_kernels=len(kernels), burst_steps=steps,
                kernels_per_step=len(kernels) / max(steps, 1),
                device_busy_s=busy_us / 1e6, batch_wall_s=batch_wall_s,
@@ -556,6 +590,7 @@ def main_path(torch, args, report, device):
                          lambda q: LaneRequest(q, K, eps, ef=EF))
     total_s = time.perf_counter() - t_all
     launches = ops.launch_counts()
+    widths = launch_histogram(engine.signatures.counts, launches, "phase 4")
     stage_s = dict(timer.seconds)
     log("launches on the main path (prewarm + serving): "
         + json.dumps(launches) + "; of them in prewarm: "
@@ -603,7 +638,7 @@ def main_path(torch, args, report, device):
         p99_s=lat_sorted[min(nq - 1, int(math.ceil(0.99 * nq)) - 1)],
         certified_share=sum(cert) / nq, stage_s=stage_s,
         launches=launches, prewarm_launches=prewarm_launches,
-        lockstep_s=lockstep_s, lockstep_queries=LANES,
+        lockstep_s=lockstep_s, lockstep_queries=LANES, widths=widths,
         rerun_ref_s=rerun_s, rerun_queries=RERUN, profile=profile,
         expansions=[int(r.stats.expansions) for r in results])
     report["main_path"] = summary
@@ -742,13 +777,14 @@ def compressed_path(torch, report, graph, qs_np, seed, device):
              PEAK_F32_FLOP_S, "src/repro/kernels/pq_lut_similarity.py:47")):
         ms, pms = time_ms(torch, fn_k), time_ms(torch, fn_p, reps=5)
         lms = None if fn_lib is None else time_ms(torch, fn_lib)
-        dev_us, _ = device_us(torch, fn_k, name + "_kernel")
+        dev_us, _, kept = device_us(torch, fn_k, name + "_kernel")
         bms, by = bound_ms(nbytes, nops, peak)
         rows[name] = dict(name=name, route="cuda", source=csrc + name + ".cu",
                           replaces=replaces, ms=ms, plain_ms=pms,
                           bound_ms=bms, bound_by=by, library_ms=lms,
                           max_abs_err=max(err[name], rerr[name]),
-                          device_us=dev_us, host_us=host_us(ms, dev_us))
+                          device_us=dev_us, device_us_kept=kept,
+                          host_us=host_us(ms, dev_us))
         log(f"time {name}: kernel {ms:.4f} ms (device {dev_us} us), "
             f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), library {lms}")
     for scheme, corpus in (("int8", c8), ("pq", pq)):
@@ -917,14 +953,15 @@ def check_topk_merge(torch, device, seed):
         if L in MERGE_TIMED:
             ms = time_ms(torch, lambda: topk_merge_cuda(*args))
             pms = time_ms(torch, lambda: plain(*args), reps=5)
-            dev_us, _ = device_us(torch, lambda: topk_merge_cuda(*args),
-                                  "topk_merge_kernel")
+            dev_us, _, kept = device_us(
+                torch, lambda: topk_merge_cuda(*args), "topk_merge_kernel")
             # bytes: two runs read, one written; operations: each entry's
             # binary search, ~log2(L) + 1 comparisons of two keys
             bms, by = bound_ms(24 * R * L,
                                2 * R * L * 2 * (math.log2(L) + 1))
             times[L] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                            device_us=dev_us, host_us=host_us(ms, dev_us))
+                            device_us=dev_us, device_us_kept=kept,
+                            host_us=host_us(ms, dev_us))
             log(f"time topk_merge {R} x {L}: kernel {ms:.4f} ms (device "
                 f"{dev_us} us), plain "
                 f"{pms:.4f} ms, bound {bms:.6f} ms ({by}), library none")
@@ -1045,6 +1082,10 @@ def sharded_path(torch, report, graph, qs_np, eps, seed, device):
     results, lat = serve(torch, eng, qs_np, request)
     total_s = time.perf_counter() - t_all
     launches = ops.launch_counts()
+    # the engine's own launches; (c)'s two scratch searches launched the
+    # adjacency too, outside its log
+    out["widths"] = launch_histogram(eng.signatures.counts, launches,
+                                     "phase 6 (d)")
     stage_s = dict(timer.seconds)
     out["path_s"] = time.perf_counter() - t_path
     missing = [k for k in PATH6_KERNELS if launches[k] == 0]
@@ -1107,6 +1148,90 @@ def sharded_path(torch, report, graph, qs_np, eps, seed, device):
     return row, launches
 
 
+def launch_histogram(counts: dict, launches: dict, what: str) -> dict:
+    """{kernel: {"lanes x width": launches}} from an engine's
+    ``SignatureLog.counts``: each signature of a kind in SIG_KERNELS is one
+    launch of its kernel at (lanes, width), lanes as the log rounds them.
+    Logged beside the window's launch counters."""
+    hist: dict = {}
+    for sig, n in counts.items():
+        name = SIG_KERNELS.get(sig[0])
+        if name is not None:
+            key = f"{sig[1]} x {sig[2]}"
+            by = hist.setdefault(name, {})
+            by[key] = by.get(key, 0) + n
+    hist = {name: dict(sorted(by.items(), key=lambda kv: -kv[1]))
+            for name, by in hist.items()}
+    log(f"launches by (lanes x width), {what}: " + json.dumps(hist)
+        + "; the window's counters: " + json.dumps(
+            {name: launches[name] for name in hist}))
+    return hist
+
+
+def most_frequent_shape(hists: list[dict], name: str) -> tuple[int, int]:
+    """(lanes, width) of the most launches of kernel ``name`` over the
+    histograms (ties: the wider)."""
+    total: dict = {}
+    for h in hists:
+        for key, n in h.get(name, {}).items():
+            total[key] = total.get(key, 0) + n
+    key = max(total, key=lambda kv: (total[kv], int(kv.split(" x ")[1])))
+    lanes, width = key.split(" x ")
+    return int(lanes), int(width)
+
+
+def time_at_path_shapes(torch, ops, sim, x, hists, seed, timings) -> dict:
+    """The adjacency and the fused round timed at their most frequent
+    (lanes, width) on the main path, l2, on tie-free prefixes over ``x``;
+    each result also goes into its kernels-line row as ``path_shape``."""
+    out = {}
+    for name, primary in (("pairwise_adjacency", "adjacency_kernel"),
+                          ("fused_round", "fused_round_kernel")):
+        lanes, W = most_frequent_shape(hists, name)
+        ids, scores, Ks, eps = tie_free_prefixes(torch, sim, x, lanes, W,
+                                                 "l2", seed + W, x.device)
+        if name == "pairwise_adjacency":
+            fn_k = lambda: ops.pairwise_adjacency_batch(x, ids, eps, "l2",
+                                                        impl="cuda")
+            fn_p = lambda: ops.pairwise_adjacency_batch(x, ids, eps, "l2",
+                                                        impl="ref")
+            work = adjacency_work(ids, x.shape[1])
+        else:
+            fn_k = lambda: ops.fused_round_batch(x, ids, scores, Ks, eps, K,
+                                                 "l2", impl="cuda")
+            fn_p = lambda: ops.fused_round_batch(x, ids, scores, Ks, eps, K,
+                                                 "l2", impl="ref")
+            work = fused_round_work(torch, ops, x, ids, scores, Ks, eps, K)
+        got, want = fn_k(), fn_p()
+        if name == "pairwise_adjacency":
+            same = torch.equal(got, want)
+        else:
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+        if not same:
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"{lanes} x {W}")
+        ms, pms = time_ms(torch, fn_k), time_ms(torch, fn_p, reps=5)
+        dev_us, _, kept = device_us(torch, fn_k, primary)
+        bms, by = bound_ms(*work)
+        out[name] = dict(lanes=lanes, width=W, ms=ms, plain_ms=pms,
+                         bound_ms=bms, bound_by=by, device_us=dev_us,
+                         device_us_kept=kept, host_us=host_us(ms, dev_us))
+        timings[name]["path_shape"] = out[name]
+        log(f"time {name} at the path's most frequent shape {lanes} x {W}: "
+            f"kernel {ms:.4f} ms (device {dev_us} us), plain {pms:.4f} ms, "
+            f"bound {bms:.6f} ms ({by})")
+    return out
+
+
+def ptxas_summary(logs: dict) -> dict:
+    """Registers, spills and shared memory of each kernel in the ptxas -v
+    output of PTXAS_SOURCES: the lines that name them, by source."""
+    keep = ("Compiling entry", "registers", "spill", "smem")
+    return {name: [line.strip() for line in logs.get(name, "").splitlines()
+                   if any(word in line for word in keep)]
+            for name in PTXAS_SOURCES}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1135,10 +1260,14 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"kernel build: {build_s:.1f} s wall, per source "
         + json.dumps({k: round(v, 1) for k, v in per_source.items()}))
+    logs = {name: _build.ptxas_log(name) for name in _build.SOURCES}
     with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
-        for name, text in _build.build_logs.items():
+        for name, text in logs.items():
             f.write(f"=== {name}\n{text}\n")
     report["build_s"] = build_s
+    report["ptxas"] = ptxas_summary(logs)
+    for name, lines in report["ptxas"].items():
+        log(f"ptxas {name}.cu:\n  " + "\n  ".join(lines))
 
     device = torch.device("cuda")
     x = deep_like(torch, args.n, D, args.seed + 100, device)
@@ -1154,6 +1283,9 @@ def main() -> int:
     mrow, slaunches = sharded_path(torch, report, graph, qs_np, eps,
                                    args.seed, device)
     timings["topk_merge"] = mrow
+    hists = [report["main_path"]["widths"], report["sharded_path"]["widths"]]
+    report["path_shape_times"] = time_at_path_shapes(
+        torch, ops, sim, graph.vectors, hists, args.seed + 300, timings)
     # the gathered scoring's device time per launch as the burst meets it:
     # its launches in phase 4's profiled lockstep batch
     prof = report["main_path"]["profile"]
@@ -1162,6 +1294,7 @@ def main() -> int:
     row["device_us"] = (prof["sim_gather_device_s"] * 1e6
                         / prof["sim_gather_launches"]
                         if prof["sim_gather_launches"] else None)
+    row["device_us_kept"] = prof["sim_gather_launches"]
     # each kernel's launches over the three paths' runs (each path's own
     # counts are in chip_smoke.json)
     kernels = []

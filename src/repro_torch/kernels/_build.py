@@ -6,9 +6,9 @@ for ``sm_90a`` into its own shared library, which is loaded with ``ctypes``
 from a checkout of the repository (run in place, or installed with
 ``pip install -e``): the sources are not packaged, and the libraries go to
 ``build/torch_ext/`` at the root of that checkout, named by a hash of the
-sources so an edited kernel is rebuilt. Nothing is built at import time:
-``load`` builds on first use, and ``build_all`` starts one ``nvcc`` per
-source at once.
+sources so an edited kernel is rebuilt, each beside its ``nvcc -Xptxas -v``
+log (``ptxas_log``). Nothing is built at import time: ``load`` builds on
+first use, and ``build_all`` starts one ``nvcc`` per source at once.
 """
 from __future__ import annotations
 
@@ -30,8 +30,6 @@ SOURCES = ("batch_similarity", "pairwise_adjacency", "greedy_diversify",
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-#: ``nvcc -Xptxas -v`` output of each source built in this process
-build_logs: dict[str, str] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -88,11 +86,21 @@ def build_all(names=SOURCES) -> dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"--- nvcc {name}.cu (rc {proc.returncode})\n{log}")
             continue
-        build_logs[name] = log
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if errors:
         raise KernelBuildError("\n".join(errors))
     return seconds
+
+
+def ptxas_log(name: str) -> str:
+    """The ``nvcc -Xptxas -v`` output (registers, spills, shared memory of
+    each kernel) of the current build of source ``name``, built first if
+    needed."""
+    log = _lib_path(name).with_suffix(".log")
+    if not log.exists():
+        build_all((name,))
+    return log.read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

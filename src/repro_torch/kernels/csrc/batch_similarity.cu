@@ -45,10 +45,9 @@
 // the ids and one for the rows. One thread per output runs the dot chain,
 // one thread per row runs <x, x> and one thread <q, q> (none of them for ip),
 // all from shared memory at the padded stride.
-#include <stdint.h>
-
 #include <algorithm>
 
+#include "cp_async.cuh"
 #include "sim.cuh"
 
 namespace {
@@ -60,33 +59,12 @@ constexpr int kMaxQ = 16;        // sim_many: queries per launch (registers)
 constexpr int kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
 constexpr int kGatherRows = 4;   // sim_gather: rows per block, a warp each
 
-// Row stride in shared memory, in floats: whole 16-byte words, an odd number
-// of them, so 8 threads reading float4s of 8 rows hit 8 distinct bank groups.
-__host__ __device__ constexpr int padded_stride(int w) {
-  return 4 * (((w + 3) / 4) | 1);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using rt::aligned16;
+using rt::cp_async16;
+using rt::cp_async4;
+using rt::cp_async_commit;
+using rt::cp_async_wait;
+using rt::padded_stride;
 
 // Copy rows [0, rows) x columns [col0, col0 + w) of a row-major [*, d] block
 // starting at src into dst at row stride S, threads t, t + step, ... of the
@@ -287,8 +265,6 @@ __global__ void __launch_bounds__(32 * kGatherRows)
     out[(size_t)b * M + m0 + t] =
         rt::finish_sim(res[t], res[2 * rows], res[rows + t], metric);
 }
-
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 template <typename K>
 int allow_smem(K kernel, size_t smem) {

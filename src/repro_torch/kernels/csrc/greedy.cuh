@@ -1,12 +1,11 @@
-// Block-wide greedy diverse selection (paper §II-B-2) over one lane,
-// shared by greedy_diversify.cu and fused_round.cu.
+// Block-wide greedy diverse selection (paper §II-B-2) over one lane, for
+// greedy_diversify.cu; fused_round.cu shares its argmax (better, warp_argmax).
 //
 // k sequential steps: pick the best candidate that is not banned (masked
 // argmax, lowest index on ties, as jnp.argmax), then ban the picked row of
 // the adjacency and the pick itself. The banned set is a bitmask of
 // ceil(W / 32) words in shared memory, so W up to ~1.8 million fits one
-// block. The adjacency row is read through `Ban`, which knows its layout
-// (one byte per entry, or packed bits).
+// block. The adjacency row is read through `Ban`, which knows its layout.
 #pragma once
 
 #include <climits>
@@ -43,16 +42,6 @@ struct BanBytes {
       const unsigned w = __ballot_sync(0xffffffffu, v);
       if (lane == 0) banned[base >> 5] |= w;
     }
-  }
-};
-
-// Row j of a bit-packed (W, ceil(W/32)) adjacency ORed into the bitmask.
-struct BanBits {
-  const unsigned* adj;
-  int nw;
-  __device__ void operator()(int j, unsigned* banned) const {
-    const unsigned* row = adj + (size_t)j * nw;
-    for (int w = threadIdx.x; w < nw; w += blockDim.x) banned[w] |= row[w];
   }
 };
 

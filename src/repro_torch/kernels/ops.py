@@ -23,7 +23,7 @@ from repro_torch.kernels.batch_similarity import sim_gather_cuda, sim_many_cuda
 from repro_torch.kernels.fused_round import fused_round_cuda
 from repro_torch.kernels.greedy_diversify import greedy_cuda
 from repro_torch.kernels.int8_similarity import int8_dot_cuda
-from repro_torch.kernels.pairwise_adjacency import adjacency_raw_cuda
+from repro_torch.kernels.pairwise_adjacency import adjacency_cuda
 from repro_torch.kernels.pq_lut_similarity import pq_lut_sum_cuda
 from repro_torch.kernels.topk_merge import topk_merge_cuda
 
@@ -54,7 +54,7 @@ def resolve(impl: str | None, t: torch.Tensor) -> str:
 #: every kernel wrapper, by the name its launches are kept under
 KERNELS = {"batch_similarity_many": sim_many_cuda,
            "batch_similarity_gather": sim_gather_cuda,
-           "pairwise_adjacency": adjacency_raw_cuda,
+           "pairwise_adjacency": adjacency_cuda,
            "greedy_diversify": greedy_cuda,
            "fused_round": fused_round_cuda,
            "int8_dot": int8_dot_cuda,
@@ -142,12 +142,11 @@ def pairwise_adjacency_batch(vectors: torch.Tensor, ids: torch.Tensor, eps,
     ids[G, W] (-1 = padding, masked out; no diagonal); ``eps`` f32[G]."""
     eps = torch.as_tensor(eps, dtype=torch.float32, device=vectors.device)
     eps = eps.expand(ids.shape[0]).contiguous()
-    valid = ids >= 0
     if resolve(impl, vectors) == "ref":
         x = vectors[ids.clamp(min=0).long()]
-        return _ref.pairwise_adjacency(x, eps[:, None, None], metric, valid)
-    return _ref.strip_adjacency(
-        adjacency_raw_cuda(_f32(vectors), _i32(ids), eps, metric), valid)
+        return _ref.pairwise_adjacency(x, eps[:, None, None], metric,
+                                       ids >= 0)
+    return adjacency_cuda(_f32(vectors), _i32(ids), eps, metric)
 
 
 def greedy_diversify_batch(scores: torch.Tensor, adj: torch.Tensor, k: int,
@@ -172,9 +171,8 @@ def fused_round_batch(vectors: torch.Tensor, ids, scores, Ks, eps, k: int,
 
     Returns ``(sel_ids int32[B, k] global ids -1-padded, sel_scores f32[B, k]
     zero-padded, count int32[B], cert f32[B, 2] = (total, s_K))``. On the
-    kernel rung the kernel returns local picks and their scores; the global
-    ids, count and certificate are derived here, outside it, as the
-    reference does (``repro/kernels/ops.py:202-216``).
+    kernel rung one launch writes all four, the certificate's total summed
+    in pick order as the plain version sums it.
     """
     dev = vectors.device
     ids = torch.as_tensor(ids, device=dev).to(torch.int32)
@@ -183,13 +181,9 @@ def fused_round_batch(vectors: torch.Tensor, ids, scores, Ks, eps, k: int,
     eps = torch.as_tensor(eps, device=dev).to(torch.float32)
     if resolve(impl, vectors) == "ref":
         return _ref.fused_round(vectors, ids, scores, Ks, eps, k, metric)
-    sel, selsc = fused_round_cuda(_f32(vectors), ids.contiguous(),
-                                  scores.contiguous(), Ks.contiguous(),
-                                  eps.contiguous(), k, metric)
-    ids_m, scores_m = _ref.mask_prefix(ids, scores, Ks)
-    sel_ids, _ = _ref.extract_round(sel, ids_m, scores_m)
-    count = torch.sum(sel >= 0, dim=1).to(torch.int32)
-    return sel_ids, selsc, count, _ref.certificate(selsc, ids_m, scores_m)
+    return fused_round_cuda(_f32(vectors), ids.contiguous(),
+                            scores.contiguous(), Ks.contiguous(),
+                            eps.contiguous(), k, metric)
 
 
 def topk_merge(ids_a: torch.Tensor, scores_a: torch.Tensor,

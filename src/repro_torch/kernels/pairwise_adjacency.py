@@ -3,16 +3,18 @@
 Replaces the Pallas kernel ``pairwise_adjacency_pallas``
 (``src/repro/kernels/pairwise_adjacency.py:46``). The engine used to vmap
 that kernel per lane (``_batched_adjacency``); here one launch builds every
-lane's ``(W, W)`` adjacency against its own eps, with the row gather fused:
+lane's finished ``(W, W)`` adjacency against its own eps, with the row
+gather, the diagonal and the padding mask inside the kernel:
 
-    raw[g, i, j] = sim(x[max(ids[g, i], 0)], x[max(ids[g, j], 0)]) > eps[g]
+    adj[g, i, j] = i != j and ids[g, i] >= 0 and ids[g, j] >= 0
+                   and sim(x[ids[g, i]], x[ids[g, j]]) > eps[g]
 
-as uint8, diagonal included, like the TPU kernel; ``ops.pairwise_adjacency_batch``
-strips the diagonal and applies the validity mask.
-
-Bound on the card: 2*G*W^2*d flops against G*W*d*4 bytes in and G*W^2
-bytes out, so it is bound by operations (float32 on the CUDA cores). Each
-block computes one 32 x 32 tile through shared memory. The plain version is
+Bound on the card: G*W*(W-1)/2 sims of 2d flops each (one triangle: sim is
+bitwise symmetric) against G*W*d*4 bytes in and G*W^2 bytes out, so it is
+bound by operations (float32 on the CUDA cores: each sim is one sequential
+fma chain, which rules out the tensor cores). Each block computes one
+64 x 64 tile of the upper triangle, 8 x 8 outputs a thread in registers,
+and writes it and its mirror. The plain version is
 ``kernels.ref.pairwise_adjacency`` on the gathered rows.
 """
 from __future__ import annotations
@@ -35,21 +37,21 @@ def _lib():
     return lib
 
 
-def adjacency_raw_cuda(x: torch.Tensor, ids: torch.Tensor, eps: torch.Tensor,
-                       metric: str) -> torch.Tensor:
-    """Raw thresholded Gram uint8[G, W, W] of each lane's gathered rows."""
+def adjacency_cuda(x: torch.Tensor, ids: torch.Tensor, eps: torch.Tensor,
+                   metric: str) -> torch.Tensor:
+    """Each lane's G^eps adjacency bool[G, W, W] among rows ``x[ids[g]]``."""
     check_cuda("x", x, torch.float32, 2)
     check_cuda("ids", ids, torch.int32, 2)
     check_cuda("eps", eps, torch.float32, 1)
     G, W = ids.shape
     if eps.shape[0] != G:
         raise ValueError("eps needs one threshold per lane")
-    out = torch.empty((G, W, W), dtype=torch.uint8, device=x.device)
+    out = torch.empty((G, W, W), dtype=torch.bool, device=x.device)
     _build.check(_lib().adjacency_batch(
         x.data_ptr(), ids.data_ptr(), eps.data_ptr(), out.data_ptr(), G, W,
         x.shape[1], metric_code(metric), stream()), "adjacency_batch")
-    adjacency_raw_cuda.launches += 1
+    adjacency_cuda.launches += 1
     return out
 
 
-adjacency_raw_cuda.launches = 0
+adjacency_cuda.launches = 0

@@ -181,9 +181,15 @@ def extract_round(sel: torch.Tensor, ids_m: torch.Tensor,
 def certificate(sel_scores: torch.Tensor, ids_m: torch.Tensor,
                 scores_m: torch.Tensor) -> torch.Tensor:
     """Theorem-2 inputs per lane: (total of the picked scores, s_K the worst
-    kept candidate score, -inf for an empty prefix) -> f32[B, 2]."""
+    kept candidate score, -inf for an empty prefix) -> f32[B, 2]. The total
+    is summed in pick order, one float32 add at a time (the order of XLA's
+    CPU reduce at these k, and of the CUDA kernel), so a lane's certificate
+    compares the same bits on every rung."""
     valid = ids_m >= 0
-    total = torch.sum(sel_scores, dim=1)
+    total = torch.zeros(sel_scores.shape[:-1], dtype=torch.float32,
+                        device=sel_scores.device)
+    for j in range(sel_scores.shape[-1]):
+        total = total + sel_scores[..., j]
     s_K = torch.min(torch.where(valid, scores_m, float("inf")), dim=1).values
     s_K = torch.where(valid.any(dim=1), s_K, float("-inf"))
     return torch.stack([total, s_K], dim=1)
