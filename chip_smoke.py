@@ -82,8 +82,14 @@ After phase 6: how many launches of pairwise_adjacency, fused_round and
 greedy_diversify ran at each (lanes, width) in phases 4 and 6, read from the
 engines' ``SignatureLog.counts`` (lanes as the log rounds them, to a power
 of two), and the adjacency and the fused round timed again at their most
-frequent shape (on phase 4's corpus). The ``ptxas -v`` summary (registers,
-spills, shared memory) of those two kernels is printed after the build.
+frequent shape (on phase 4's corpus), and greedy_diversify at 16 x 64, the
+width it serves (prewarm, the sharded greedy diversify), with its k
+dependent steps beside its bound. Phase 5 also times pq_lut_sum at one
+query (the cos path's second call) and records beside its byte bound the
+floor of its b * n * M shared-memory lookups at 32 a clock on each SM, at
+the SM clock nvidia-smi reads under load. The ``ptxas -v`` summary
+(registers, spills, shared memory) of the adjacency, the fused round,
+greedy and the LUT sum is printed after the build.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -129,7 +135,11 @@ MERGE_ROWS, MERGE_LS, MERGE_TIMED = 64, (10, 32, 128, 1000, 4096), (32, 4096)
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
-PTXAS_SOURCES = ("pairwise_adjacency", "fused_round")
+PTXAS_SOURCES = ("pairwise_adjacency", "fused_round", "greedy_diversify",
+                 "pq_lut_sum")
+# the path shapes timed at a fixed size: greedy at the prewarm's and the
+# sharded diversify's width, the LUT sum at the cos path's second call
+GREEDY_PATH_SHAPE = (16, 64)
 
 
 T0 = time.perf_counter()
@@ -144,6 +154,33 @@ def smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz(torch, fn, seconds: float = 1.0) -> float:
+    """The SM clock nvidia-smi reads while ``fn()`` keeps the card busy:
+    about ``seconds`` of launches are queued, then the clock is read before
+    they drain."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = max(time.perf_counter() - t0, 1e-5)
+    for _ in range(int(seconds / one) + 1):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    torch.cuda.synchronize()
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def lookup_floor_ms(torch, lookups: int, mhz: float) -> float:
+    """Least time for ``lookups`` 4-byte table reads from shared memory:
+    32 banks a clock on each SM, free of bank conflicts."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return lookups / (32 * sms * mhz * 1e6) * 1e3
 
 
 def bound_ms(bytes_moved: float, ops: float,
@@ -380,10 +417,11 @@ def check_kernels(torch, ops, sim, x, qs, seed, report):
     row("greedy_diversify",
         lambda: ops.greedy_diversify_batch(scores, adj, k, valid, impl="cuda"),
         lambda: ops.greedy_diversify_batch(scores, adj, k, valid, impl="ref"),
-        None, 4 * B * W + B * W + int(picks_g.sum()) * W + 4 * B * k,
-        int(picks_g.sum()) * W,
+        None, *greedy_work(scores, valid, picks_g, k),
         "src/repro/kernels/greedy_diversify.py:64",
-        csrc + "greedy_diversify.cu", 0.0, "greedy_kernel")
+        csrc + "greedy_diversify.cu", 0.0, "greedy_")
+    # its floor is the chain of dependent steps, one a pick
+    t["greedy_diversify"]["dependent_steps"] = k
     row("fused_round",
         lambda: ops.fused_round_batch(x, ids, scores, Ks, eps, k, "l2",
                                       impl="cuda"),
@@ -395,6 +433,15 @@ def check_kernels(torch, ops, sim, x, qs, seed, report):
         max(errs[m][f"fused_round_W{w}"] for m in errs for w in (64, 256, 1024)),
         "fused_round_kernel")
     return t
+
+
+def greedy_work(scores, valid, picks, k: int) -> tuple[int, int]:
+    """Bytes and operations greedy needs on these lanes: the scores and the
+    valid mask in, the picked rows of the adjacency, the picks out; one
+    byte test a picked row's candidate."""
+    B, W = scores.shape
+    rows = int(picks.sum()) * W
+    return 4 * B * W + B * W + rows + 4 * B * k, rows
 
 
 def adjacency_work(ids, d: int) -> tuple[int, int]:
@@ -787,6 +834,31 @@ def compressed_path(torch, report, graph, qs_np, seed, device):
                           host_us=host_us(ms, dev_us))
         log(f"time {name}: kernel {ms:.4f} ms (device {dev_us} us), "
             f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), library {lms}")
+    # the LUT sum's floor in shared memory: its b * n * M lookups at the SM
+    # clock under load; and the cos path's second call, one table (the
+    # centroid norms) over the same codes
+    prow = rows["pq_lut_sum"]
+    prow["sm_clock_mhz"] = sm_clock_mhz(
+        torch, lambda: pq_lut_sum_cuda(T, pq.codes))
+    prow["lookup_floor_ms"] = lookup_floor_ms(torch, b * n * M,
+                                              prow["sm_clock_mhz"])
+    S1 = quant.pq_luts_many(qs, pq.codebooks, "cos")[1][None].contiguous()
+    assert_bits_equal(torch, pq_lut_sum_cuda(S1, pq.codes),
+                      quant.pq_lut_sum(S1, pq.codes), "pq_lut_sum at 1 query")
+    ms = time_ms(torch, lambda: pq_lut_sum_cuda(S1, pq.codes))
+    pms = time_ms(torch, lambda: quant.pq_lut_sum(S1, pq.codes), reps=5)
+    dev_us, _, kept = device_us(torch, lambda: pq_lut_sum_cuda(S1, pq.codes),
+                                "pq_lut_sum_kernel")
+    bms, by = bound_ms(n * M + 4 * M * C + 4 * n, n * (M - 1))
+    prow["path_shape"] = dict(
+        queries=1, rows=n, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        lookup_floor_ms=lookup_floor_ms(torch, n * M, prow["sm_clock_mhz"]),
+        device_us=dev_us, device_us_kept=kept, host_us=host_us(ms, dev_us))
+    log(f"time pq_lut_sum at 1 x {n} (the cos path's second call): kernel "
+        f"{ms:.4f} ms (device {dev_us} us), plain {pms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}); lookup floor {prow['lookup_floor_ms']:.4f} ms "
+        f"at 16 x n, SM clock {prow['sm_clock_mhz']} MHz")
+    del S1
     for scheme, corpus in (("int8", c8), ("pq", pq)):
         whole[scheme] = time_ms(torch, lambda: ops.quantized_similarity_many(
             qs, corpus, "l2", impl="cuda"))
@@ -1182,8 +1254,9 @@ def most_frequent_shape(hists: list[dict], name: str) -> tuple[int, int]:
 
 def time_at_path_shapes(torch, ops, sim, x, hists, seed, timings) -> dict:
     """The adjacency and the fused round timed at their most frequent
-    (lanes, width) on the main path, l2, on tie-free prefixes over ``x``;
-    each result also goes into its kernels-line row as ``path_shape``."""
+    (lanes, width) on the main path, and greedy at GREEDY_PATH_SHAPE, l2,
+    on tie-free prefixes over ``x``; each result also goes into its
+    kernels-line row as ``path_shape``."""
     out = {}
     for name, primary in (("pairwise_adjacency", "adjacency_kernel"),
                           ("fused_round", "fused_round_kernel")):
@@ -1220,6 +1293,31 @@ def time_at_path_shapes(torch, ops, sim, x, hists, seed, timings) -> dict:
         log(f"time {name} at the path's most frequent shape {lanes} x {W}: "
             f"kernel {ms:.4f} ms (device {dev_us} us), plain {pms:.4f} ms, "
             f"bound {bms:.6f} ms ({by})")
+    # greedy at the width it serves: the prewarm's and the sharded
+    # diversify's (phase 6 runs div-A*, so none of its launches is there)
+    lanes, W = GREEDY_PATH_SHAPE
+    ids, scores, _, eps = tie_free_prefixes(torch, sim, x, lanes, W, "l2",
+                                            seed + W, x.device)
+    adj = ops.pairwise_adjacency_batch(x, ids, eps, "l2", impl="ref")
+    valid = ids >= 0
+    fn_k = lambda: ops.greedy_diversify_batch(scores, adj, K, valid,
+                                              impl="cuda")
+    fn_p = lambda: ops.greedy_diversify_batch(scores, adj, K, valid,
+                                              impl="ref")
+    got, want = fn_k(), fn_p()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"greedy_diversify differs from its plain "
+                             f"version at {lanes} x {W}")
+    ms, pms = time_ms(torch, fn_k), time_ms(torch, fn_p, reps=5)
+    dev_us, _, kept = device_us(torch, fn_k, "greedy_")
+    bms, by = bound_ms(*greedy_work(scores, valid, want[1].long(), K))
+    out["greedy_diversify"] = dict(
+        lanes=lanes, width=W, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        dependent_steps=K, device_us=dev_us, device_us_kept=kept,
+        host_us=host_us(ms, dev_us))
+    timings["greedy_diversify"]["path_shape"] = out["greedy_diversify"]
+    log(f"time greedy_diversify at {lanes} x {W}: kernel {ms:.4f} ms (device "
+        f"{dev_us} us), plain {pms:.4f} ms, bound {bms:.6f} ms ({by})")
     return out
 
 

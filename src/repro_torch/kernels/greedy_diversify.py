@@ -5,12 +5,15 @@ Replaces the Pallas kernels ``greedy_diversify_pallas``
 ``greedy_diversify_batch_pallas`` (``:64``): k greedy steps (masked argmax,
 lowest index on ties; ban the pick's adjacency row and the pick) over
 scores f32 (B, K), -inf marking an invalid candidate, and adjacency (B, K, K).
-One block per lane keeps its banned set as a bitmask in shared memory.
 
-Bound on the card: k dependent block-wide reductions per lane, moving
-B*k*5K bytes: bound by latency, not by bytes or operations. The device loop
-(``csrc/greedy.cuh``) is shared with the fused round. The plain version is
-``kernels.ref.greedy_diversify``.
+Bound on the card: the scores and the k picked rows are few bytes; the
+floor is the chain of k dependent steps. Up to K = 1024 one warp holds a
+lane, its scores in registers and its banned set in one register word a
+thread, so a step has no block barrier: the rows are staged whole in
+shared memory at launch up to K = 128, and past that each thread's part of
+the rows of the next candidates in score order is loaded into registers
+ahead of need. Wider lanes take a block each, with one barrier a step
+(``greedy_plan``). The plain version is ``kernels.ref.greedy_diversify``.
 """
 from __future__ import annotations
 
@@ -28,8 +31,26 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.greedy_batch.argtypes = [p, p, p, i, i, i, p]
         lib.greedy_batch.restype = i
+        lib.greedy_plan.argtypes = [i, p]
+        lib.greedy_plan.restype = i
         lib._typed = True
     return lib
+
+
+ROUTES = ("staged", "prefetch", "block", "block_streamed")
+
+
+def greedy_plan(W: int) -> dict:
+    """The route a lane of W candidates runs on: "staged" (one warp, the
+    lane's W x W bytes in shared memory), "prefetch" (one warp, the rows of
+    the next candidates in score order loaded ahead into registers),
+    "block" (one block, the scores in shared memory) or "block_streamed"
+    (one block, the scores read from device memory); threads a lane,
+    candidates a thread (warp routes) and dynamic shared memory bytes."""
+    out = (ctypes.c_longlong * 4)()
+    _build.check(_lib().greedy_plan(W, out), "greedy_plan")
+    return dict(route=ROUTES[out[0]], threads=out[1], per_thread=out[2],
+                smem=out[3])
 
 
 def greedy_cuda(scores: torch.Tensor, adj: torch.Tensor, k: int) -> torch.Tensor:

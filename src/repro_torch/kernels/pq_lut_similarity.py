@@ -9,8 +9,9 @@ matmuls; the card gathers from shared memory directly.
 
 Bound on the card: the codes are read once and the sums written once
 (n*M + 4*b*M*C + 4*b*n bytes) for b*n*M float additions, so it is bound by
-bytes. Each block holds up to 8 queries' tables in shared memory and walks
-the corpus rows; each thread keeps one running sum per query.
+bytes; the b*n*M lookups in shared memory set a floor above that. Each
+block holds up to 8 queries' tables in shared memory, interleaved by query
+so the queries of one code share one span, and walks the corpus rows.
 
 The plain twin is ``quant.pq_lut_sum``, which the beam loop's block
 scorer also uses. Codes must be under C; the wrapper checks that when

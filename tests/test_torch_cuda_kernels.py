@@ -433,3 +433,311 @@ def test_cuda_threshold_pins_the_shared_reduction_order(cuda_device, metric):
         assert int(sel_ids[0, 0]) == int(ids[0, 0])
         # candidate 1 is picked second unless the first pick banned it
         assert (int(sel_ids[0, 1]) == int(ids[0, 1])) == (not edge)
+
+
+def _unaligned(t):
+    """A copy of uint8 t whose base is 1 byte past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+class _CudaArray:
+    """Device memory at a raw address, as torch.as_tensor takes it."""
+
+    def __init__(self, ptr, n):
+        self.__cuda_array_interface__ = dict(shape=(n,), typestr="|u1",
+                                             data=(ptr, False), version=3)
+
+
+@pytest.fixture
+def guarded(cuda_device):
+    """guarded(t): a copy of uint8 t whose last byte is the last mapped byte
+    before address space that is reserved and not mapped, so a kernel that
+    reads one byte past t faults (the CUDA driver's virtual memory calls).
+    The mappings are undone after the test."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    u64, size_t = ctypes.c_uint64, ctypes.c_size_t
+
+    class Location(ctypes.Structure):
+        _fields_ = [("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+    class Flags(ctypes.Structure):
+        _fields_ = [("compressionType", ctypes.c_ubyte),
+                    ("gpuDirectRDMACapable", ctypes.c_ubyte),
+                    ("usage", ctypes.c_ushort),
+                    ("reserved", ctypes.c_ubyte * 4)]
+
+    class Prop(ctypes.Structure):
+        _fields_ = [("type", ctypes.c_int),
+                    ("requestedHandleTypes", ctypes.c_int),
+                    ("location", Location),
+                    ("win32HandleMetaData", ctypes.c_void_p),
+                    ("allocFlags", Flags)]
+
+    class Access(ctypes.Structure):
+        _fields_ = [("location", Location), ("flags", ctypes.c_int)]
+
+    def ok(rc, what):
+        assert rc == 0, f"{what} returned CUresult {rc}"
+
+    torch.zeros(1, device=cuda_device)   # the primary context is current
+    here = Location(1, torch.cuda.current_device())   # the device
+    prop = Prop(type=1, location=here)                # pinned device memory
+    gran = size_t()
+    ok(cu.cuMemGetAllocationGranularity(ctypes.byref(gran),
+                                        ctypes.byref(prop), 0),
+       "cuMemGetAllocationGranularity")
+    undo = []
+
+    def make(t):
+        n = t.numel()
+        mapped = -(-n // gran.value) * gran.value
+        base, handle = u64(), u64()
+        ok(cu.cuMemAddressReserve(ctypes.byref(base), size_t(mapped + gran.value),
+                                  size_t(0), u64(0), u64(0)),
+           "cuMemAddressReserve")
+        undo.append(lambda: cu.cuMemAddressFree(base, size_t(mapped +
+                                                             gran.value)))
+        ok(cu.cuMemCreate(ctypes.byref(handle), size_t(mapped),
+                          ctypes.byref(prop), u64(0)), "cuMemCreate")
+        undo.append(lambda: cu.cuMemRelease(handle))
+        ok(cu.cuMemMap(base, size_t(mapped), size_t(0), handle, u64(0)),
+           "cuMemMap")
+        undo.append(lambda: cu.cuMemUnmap(base, size_t(mapped)))
+        access = Access(here, 3)                        # read and write
+        ok(cu.cuMemSetAccess(base, size_t(mapped), ctypes.byref(access),
+                             size_t(1)), "cuMemSetAccess")
+        out = torch.as_tensor(_CudaArray(base.value + mapped - n, n),
+                              device=cuda_device).view(t.shape)
+        out.copy_(t)
+        return out
+
+    yield make
+    torch.cuda.synchronize()
+    for f in reversed(undo):
+        f()
+
+
+def _tables(rng, B, M, C):
+    """Tables f32[B, M, C] with signed zeros among the entries, so a sum
+    that started anywhere but at the first entry (or at -0.0) shows."""
+    T = rng.normal(size=(B, M, C)).astype(np.float32)
+    T[rng.random(T.shape) < 0.05] = -0.0
+    T[rng.random(T.shape) < 0.05] = 0.0
+    return T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [7, 256])
+@pytest.mark.parametrize("M", [1, 5, 16, 32])
+@pytest.mark.parametrize("B", [1, 5, 8, 16, 17])
+def test_cuda_pq_lut_sum_equals_plain_version_bitwise(cuda_device, B, M, C):
+    """Every query-group size the kernel plans (1, 4, 8 tables a block),
+    every code path (16-byte, 4-byte and byte loads: M = 16 and 32 aligned,
+    then the same codes 1 byte off alignment), at a row count that is no
+    multiple of any block's rows."""
+    from repro_torch.kernels.pq_lut_similarity import pq_lut_sum_cuda
+
+    rng = np.random.default_rng(B * 1000 + M * 10 + C)
+    n = 2053
+    T = torch.from_numpy(_tables(rng, B, M, C)).to(cuda_device)
+    codes = torch.from_numpy(rng.integers(0, C, (n, M)).astype(
+        np.uint8)).to(cuda_device)
+    want = tq.pq_lut_sum(T, codes)
+    _assert_bits_equal(pq_lut_sum_cuda(T, codes), want)
+    _assert_bits_equal(pq_lut_sum_cuda(T, _unaligned(codes)), want)
+
+
+@pytest.mark.cuda
+def test_cuda_pq_lut_sum_at_the_table_limit(cuda_device):
+    """One query's tables at the wrapper's limit, M * C * 4 = 200 KB, run
+    one table a block; one byte more is refused."""
+    from repro_torch.kernels.pq_lut_similarity import (MAX_TABLE_BYTES,
+                                                       pq_lut_sum_cuda)
+
+    M, C = MAX_TABLE_BYTES // (4 * 256), 256
+    assert M * C * 4 == MAX_TABLE_BYTES
+    rng = np.random.default_rng(3)
+    T = torch.from_numpy(_tables(rng, 3, M, C)).to(cuda_device)
+    codes = torch.from_numpy(rng.integers(0, C, (1001, M)).astype(
+        np.uint8)).to(cuda_device)
+    _assert_bits_equal(pq_lut_sum_cuda(T, codes), tq.pq_lut_sum(T, codes))
+    with pytest.raises(ValueError, match="M\\*C\\*4"):
+        pq_lut_sum_cuda(torch.zeros((1, M + 1, C), device=cuda_device),
+                        torch.zeros((4, M + 1), dtype=torch.uint8,
+                                    device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_pq_lut_sum_repeat(cuda_device):
+    """300 launches in a row at the compressed path's shape (16 queries x
+    1M rows, M = 16, C = 256) give the plain version's sums every time."""
+    from repro_torch.kernels.pq_lut_similarity import pq_lut_sum_cuda
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    T = torch.randn((16, 16, 256), generator=g, device=cuda_device)
+    codes = torch.randint(0, 256, (1_000_000, 16), generator=g,
+                          device=cuda_device, dtype=torch.uint8)
+    want = tq.pq_lut_sum(T, codes).view(torch.int32)
+    bad = sum(not torch.equal(pq_lut_sum_cuda(T, codes).view(torch.int32),
+                              want) for _ in range(300))
+    assert bad == 0, f"{bad} of 300 launches differ from the plain version"
+
+
+def _greedy_lanes(rng, W, density, device):
+    """Seven lanes of width W, with -inf past a random valid count: lane 0
+    all -inf; lane 1 tied (three distinct values, unsorted); lanes 2 and 4
+    sorted descending (the queue's order, lane 4 tied); lane 3 three valid
+    candidates and no edge; lane 5 a NaN and lane 6 a +inf among its
+    scores (no pick at all, as the plain argmax takes them first). The
+    adjacency is random uint8 (values 0, 1 and 7) at ``density``, drawn on
+    the card."""
+    B = 7
+    s = rng.normal(size=(B, W)).astype(np.float32)
+    s[1] = rng.integers(0, 3, W)
+    s[2] = -np.sort(-s[2])
+    s[4] = -np.sort(-np.round(s[4]))
+    for b in range(B):
+        s[b, rng.integers(max(1, W // 2), W + 1):] = -np.inf
+    s[0] = -np.inf
+    s[3] = rng.normal(size=W)
+    s[3, 3:] = -np.inf
+    s[5, rng.integers(W)] = np.nan
+    s[6, rng.integers(W)] = np.inf
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+    edge = torch.rand((B, W, W), generator=g, device=device) < density
+    seven = torch.rand((B, W, W), generator=g, device=device) < 0.5
+    adj = torch.where(edge, torch.where(seven, 7, 1), 0).to(torch.uint8)
+    adj[3] = 0
+    return torch.from_numpy(s).to(device), adj
+
+
+def _greedy_equal(scores, adj, k):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.greedy_diversify import greedy_cuda
+
+    got = greedy_cuda(scores, adj, k)
+    want = ref.greedy_diversify(scores, adj != 0, k)[0]
+    assert torch.equal(got, want), (
+        f"{int((got != want).sum())} picks differ:\n{got}\n{want}")
+    return got
+
+
+# every route: staged (<= 128), prefetch (<= 1 024), block (wider)
+GREEDY_WIDTHS = [1, 33, 64, 100, 128, 200, 1024, 4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", GREEDY_WIDTHS)
+def test_cuda_greedy_equals_plain_version(cuda_device, W):
+    """Picks equal the plain version's on every route, for sorted lanes
+    (the queue's order) and unsorted ones, tied scores, an all-invalid lane, non-finite scores, k up to past
+    the valid count, adjacency bytes that are not 0/1, and from an
+    adjacency 1 byte off alignment (the byte-copy path)."""
+    rng = np.random.default_rng(W)
+    for density in (0.1, 0.01):
+        scores, adj = _greedy_lanes(rng, W, density, cuda_device)
+        for k in sorted({1, 10, min(W, 200) + 3}):
+            got = _greedy_equal(scores, adj, k)
+            for b in (0, 5, 6):   # all -inf, a NaN, a +inf: no pick
+                assert bool((got[b] == -1).all())
+            assert int((got[3] >= 0).sum()) == min(k, 3, W)
+            assert int((got[2] >= 0).sum()) >= min(k, 1)
+        _greedy_equal(scores, _unaligned(adj), 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [33, 100, 200, 513, 528, 1100])
+def test_cuda_greedy_reads_nothing_past_the_adjacency(cuda_device, guarded,
+                                                      W):
+    """An adjacency that ends where mapped memory ends, at widths that are
+    no multiple of a warp's 32 R bytes a row (every route, the prefetch
+    route both aligned, 200 and 528, and byte by byte, 513): the last
+    candidate of every lane scores highest, so the last row is read first,
+    and the picks equal the plain version's with no fault."""
+    rng = np.random.default_rng(W + 2)
+    s = rng.normal(size=(7, W)).astype(np.float32)
+    s[:, -1] = 10.0
+    s[1] = np.sort(s[1])   # ascending
+    scores = torch.from_numpy(s).to(cuda_device)
+    adj = torch.from_numpy((rng.random((7, W, W)) < 0.05).astype(
+        np.uint8)).to(cuda_device)
+    got = _greedy_equal(scores, guarded(adj), 10)
+    assert bool((got[:, 0] == W - 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, M", [(16, 16), (5, 16), (3, 5), (1, 32)])
+def test_cuda_pq_lut_sum_reads_nothing_past_the_codes(cuda_device, guarded,
+                                                       B, M):
+    """Codes that end where mapped memory ends, at a row count that is no
+    multiple of any block's rows (the skewed, 16-byte and byte paths): the
+    sums equal the plain version's with no fault."""
+    from repro_torch.kernels.pq_lut_similarity import pq_lut_sum_cuda
+
+    rng = np.random.default_rng(B * 100 + M)
+    T = torch.from_numpy(_tables(rng, B, M, 256)).to(cuda_device)
+    codes = torch.from_numpy(rng.integers(0, 256, (2053, M)).astype(
+        np.uint8)).to(cuda_device)
+    _assert_bits_equal(pq_lut_sum_cuda(T, guarded(codes)),
+                       tq.pq_lut_sum(T, codes))
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_routes(cuda_device):
+    from repro_torch.kernels.greedy_diversify import greedy_plan
+
+    routes = {W: greedy_plan(W)["route"] for W in GREEDY_WIDTHS}
+    assert all(routes[W] == "staged" for W in (1, 33, 64, 100, 128))
+    assert routes[200] == routes[1024] == "prefetch"
+    assert routes[4096] == "block"
+    for W in (0, *GREEDY_WIDTHS):
+        p = greedy_plan(W)
+        assert p["smem"] <= 227 * 1024 and p["threads"] % 32 == 0
+        if p["route"] in ("staged", "prefetch"):
+            assert p["threads"] == 32 and 32 * p["per_thread"] >= W
+    assert greedy_plan(60_000)["route"] == "block_streamed"
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_block_streamed_route(cuda_device):
+    """One lane too wide for its scores to fit in shared memory (60 000
+    candidates, 3.6 GB of adjacency, about 20 edges a row) reads them from
+    device memory each step; its picks equal the plain version's."""
+    from repro_torch.kernels.greedy_diversify import greedy_plan
+
+    W = 60_000
+    assert greedy_plan(W)["route"] == "block_streamed"
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    scores = torch.randn((1, W), generator=g, device=cuda_device)
+    scores[0, W // 2:] = float("-inf")
+    adj = torch.zeros((1, W, W), dtype=torch.uint8, device=cuda_device)
+    flat = torch.randint(0, W * W, (20 * W,), generator=g, device=cuda_device)
+    adj.view(-1)[flat] = 1
+    got = _greedy_equal(scores, adj, 40)
+    assert int((got >= 0).sum()) == 40
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [64, 1024])
+def test_cuda_greedy_repeat(cuda_device, W):
+    """300 launches in a row at 16 lanes (the staged route at W = 64, the
+    prefetch route at W = 1024; half the lanes sorted, as a queue keeps
+    them) give the plain version's picks every time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.greedy_diversify import greedy_cuda
+
+    rng = np.random.default_rng(W + 1)
+    s = rng.normal(size=(16, W)).astype(np.float32)
+    s[::2] = -np.sort(-s[::2], axis=1)
+    scores = torch.from_numpy(s).to(cuda_device)
+    adj = torch.from_numpy((rng.random((16, W, W)) < 0.1).astype(
+        np.uint8)).to(cuda_device)
+    want = ref.greedy_diversify(scores, adj != 0, 10)[0]
+    bad = sum(not torch.equal(greedy_cuda(scores, adj, 10), want)
+              for _ in range(300))
+    assert bad == 0, f"{bad} of 300 launches differ from the plain version"

@@ -113,9 +113,17 @@ def test_pairwise_adjacency_batch_matches_reference(metric):
     assert 0 < got.sum() < got.size // 2
 
 
-def test_greedy_diversify_matches_reference():
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("W", [1, 33, 64, 100])
+def test_greedy_diversify_matches_reference(W, tied):
+    """The plain greedy, which the CUDA kernel is held to on the card, picks
+    as the reference does at the kernel's staged widths, also on scores
+    with ties (three distinct values), where both take the lowest index."""
     x = _corpus()
-    ids, scores, _, eps = _prefixes(x, "l2", B=5)
+    ids, scores, _, eps = _prefixes(x, "l2", B=5, W=W)
+    if tied:
+        scores = np.where(ids >= 0, np.abs(np.round(scores)), -np.inf).astype(
+            np.float32)
     adj = tops.pairwise_adjacency_batch(torch.from_numpy(x), torch.from_numpy(ids),
                                         torch.from_numpy(eps), "l2")
     valid = ids >= 0
@@ -150,7 +158,7 @@ def test_fused_round_batch_matches_reference(metric, k):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
-@pytest.mark.parametrize("k", [1, 5, 10, 13])
+@pytest.mark.parametrize("k", [1, 5, 10, 13, 16, 32])
 def test_certificate_total_sums_in_pick_order(k):
     """The plain certificate's total is the float32 sum of the picked
     scores in pick order, which is the JAX reference's per-lane ``jnp.sum``
