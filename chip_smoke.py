@@ -60,7 +60,13 @@ Phases:
 6. The sharded path on phase 4's corpus, queries and eps: (a) topk_merge
    against its plain version at 64 rows (4 shards x 16 lanes) and L in
    {10, 32, 128, 1000, 4096}, with equal scores, -0.0 beside +0.0 and
-   padding tails: ids and score bits equal; timed at L = 32 and 4096.
+   padding tails: ids and score bits equal; timed at L = 32 and 4096. The
+   tournament kernel (the whole butterfly in one launch) against the plain
+   butterfly at 4 shards x 16 lanes and the same L, and at 8 shards and
+   L = 4096 (its device-memory route), on runs that share ids across
+   shards: ids and score bits equal; timed at L = 32 and 4096. The
+   tournament is what the path launches, so its times fill the kernels
+   line's topk_merge row (the two-run kernel's sit beside, "pairwise").
    (b) ``build_sharded_index``: 4 shards of 250 000 rows, M = 16, on the
    card, and an int8 copy of it (each shard quantized, 8 rows per scale).
    (c) ``sharded_topk`` (k = 10, L = 40) of 16 queries: tournament and
@@ -132,6 +138,10 @@ PATH6_KERNELS = ("topk_merge", "batch_similarity_gather", "pairwise_adjacency")
 # phase 6: the sharded path (ShardedEngine's defaults)
 SHARDS, SH_L, SH_KDIV, K0, L_FACTOR, MAX_ROUNDS = 4, 40, 32, 32, 4, 8
 MERGE_ROWS, MERGE_LS, MERGE_TIMED = 64, (10, 32, 128, 1000, 4096), (32, 4096)
+# the tournament at P = SHARDS: MERGE_LS and every L of phase 6's merges
+# (k = 10, K = 32 and 64)
+TOURNAMENT_LS = tuple(sorted({*MERGE_LS, 10, 32, 64}))
+TOURNAMENT_DEVICE_ROUTE = (8, 4096)   # (P, L): 256 KB of runs a lane
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
@@ -1003,47 +1013,88 @@ def merge_runs(torch, R, L, seed, device):
     return out
 
 
-def check_topk_merge(torch, device, seed):
-    """Phase 6 (a): topk_merge against its plain version, ids and score
-    bits; returns its kernels-line row (timed at L = 32, the path's first
-    rung) and the times at each timed L."""
-    from repro_torch.kernels.ref import topk_merge as plain
-    from repro_torch.kernels.topk_merge import topk_merge_cuda
+def tournament_runs(torch, P, B, L, seed, device):
+    """The shards' runs [P, B, L]: shard p is run p % 2 of ``merge_runs``
+    drawn with its own seed (so shards share ids, and lane 0 of every odd
+    shard is all padding); lane B - 1 of shard 1 repeats shard 0's with its
+    zeros' signs flipped (ties on both keys, other bits)."""
+    runs = [merge_runs(torch, B, L, seed + 7 * p, device)[2 * (p % 2):][:2]
+            for p in range(P)]
+    ids = torch.stack([r[0] for r in runs])
+    sc = torch.stack([r[1] for r in runs])
+    ids[1, -1] = ids[0, -1]
+    sc[1, -1] = torch.where(sc[0, -1] == 0.0, -sc[0, -1], sc[0, -1])
+    return ids, sc
 
-    R = MERGE_ROWS
-    times = {}
-    for L in MERGE_LS:
-        args = merge_runs(torch, R, L, seed + L, device)
-        gi, gs = topk_merge_cuda(*args)
-        ri, rs = plain(*args)
+
+def check_topk_merge(torch, device, seed):
+    """Phase 6 (a): the two-run topk_merge and the tournament against their
+    plain versions, ids and score bits; returns the kernels-line row (the
+    tournament, which the path launches, timed at L = 32, the path's first
+    rung) and the times at each timed L of both."""
+    from repro_torch.kernels.ref import topk_merge as plain
+    from repro_torch.kernels.ref import topk_tournament as plain_tournament
+    from repro_torch.kernels.topk_merge import (topk_merge_cuda,
+                                                topk_tournament_cuda)
+
+    def same(got, want, what):
+        (gi, gs), (ri, rs) = got, want
         if not (torch.equal(gi, ri)
                 and torch.equal(gs.view(torch.int32), rs.view(torch.int32))):
             raise AssertionError(
-                f"topk_merge differs at L={L}: {int((gi != ri).sum())} ids, "
+                f"{what} differs: {int((gi != ri).sum())} ids, "
                 f"{int((gs.view(torch.int32) != rs.view(torch.int32)).sum())}"
                 " score bit patterns")
+
+    def timed(fn, fn_plain, primary, nbytes, ops):
+        ms = time_ms(torch, fn)
+        pms = time_ms(torch, fn_plain, reps=5)
+        dev_us, _, kept = device_us(torch, fn, primary)
+        bms, by = bound_ms(nbytes, ops)
+        return dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                    device_us=dev_us, device_us_kept=kept,
+                    host_us=host_us(ms, dev_us))
+
+    R = MERGE_ROWS
+    times, tour = {}, {}
+    for L in MERGE_LS:
+        args = merge_runs(torch, R, L, seed + L, device)
+        same(topk_merge_cuda(*args), plain(*args), f"topk_merge at L={L}")
         if L in MERGE_TIMED:
-            ms = time_ms(torch, lambda: topk_merge_cuda(*args))
-            pms = time_ms(torch, lambda: plain(*args), reps=5)
-            dev_us, _, kept = device_us(
-                torch, lambda: topk_merge_cuda(*args), "topk_merge_kernel")
             # bytes: two runs read, one written; operations: each entry's
             # binary search, ~log2(L) + 1 comparisons of two keys
-            bms, by = bound_ms(24 * R * L,
-                               2 * R * L * 2 * (math.log2(L) + 1))
-            times[L] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                            device_us=dev_us, device_us_kept=kept,
-                            host_us=host_us(ms, dev_us))
-            log(f"time topk_merge {R} x {L}: kernel {ms:.4f} ms (device "
-                f"{dev_us} us), plain "
-                f"{pms:.4f} ms, bound {bms:.6f} ms ({by}), library none")
-    log(f"topk_merge ok: {R} rows at L in {MERGE_LS}, ids and score bits "
-        "equal")
+            times[L] = timed(lambda: topk_merge_cuda(*args),
+                             lambda: plain(*args), "topk_merge_kernel",
+                             24 * R * L, 2 * R * L * 2 * (math.log2(L) + 1))
+            log(f"time topk_merge {R} x {L}: " + json.dumps(times[L]))
+    B = R // SHARDS
+    for P, L in ([(SHARDS, L) for L in TOURNAMENT_LS]
+                 + [TOURNAMENT_DEVICE_ROUTE]):
+        ids, sc = tournament_runs(torch, P, B, L, seed + 50 + L, device)
+        same(topk_tournament_cuda(ids, sc), plain_tournament(ids, sc),
+             f"topk_tournament at P={P}, L={L}")
+        if P == SHARDS and L in MERGE_TIMED:
+            # bytes: P runs read, one written; operations: each entry's
+            # P - 1 binary searches of ~log2(L) + 1 steps, two comparisons
+            # each, at most (a search stops once the rank reaches L): the
+            # bytes bound it even at that most
+            tour[L] = timed(lambda: topk_tournament_cuda(ids, sc),
+                            lambda: plain_tournament(ids, sc),
+                            "topk_tournament_kernel", 8 * B * L * (P + 1),
+                            B * P * L * (P - 1) * (math.log2(L) + 1) * 2)
+            log(f"time topk_tournament {P} x {B} x {L}: "
+                + json.dumps(tour[L]))
+    log(f"topk_merge ok: {R} rows at L in {MERGE_LS}; the tournament at "
+        f"{SHARDS} x {B} at L in {TOURNAMENT_LS} and at P, L = "
+        f"{TOURNAMENT_DEVICE_ROUTE}: ids and score bits equal")
     row = dict(name="topk_merge", route="cuda",
                source="src/repro_torch/kernels/csrc/topk_merge.cu",
                replaces="src/repro/kernels/topk_merge.py:53",
-               library_ms=None, max_abs_err=0.0, **times[MERGE_TIMED[0]])
-    return row, times
+               library_ms=None, max_abs_err=0.0, **tour[MERGE_TIMED[0]],
+               shape=f"tournament {SHARDS} x {B} x {MERGE_TIMED[0]}",
+               pairwise=dict(times[MERGE_TIMED[0]],
+                             shape=f"{R} x {MERGE_TIMED[0]}"))
+    return row, {"pairwise": times, "tournament": tour}
 
 
 def sharded_path(torch, report, graph, qs_np, eps, seed, device):

@@ -6,9 +6,11 @@ Here the mesh is the P shards of one process on one device: every per-shard
 tensor carries a leading shard axis of length P, and each collective is a
 tensor operation over that axis. ``shard_map`` has no counterpart: a
 function over the shard axis is written out over it (the lanes of all
-shards step in one lockstep loop). A mesh of one process per card (NCCL
-through ``torch.distributed``) is later work; it would supply the same
-three operations on the same leading-axis layout.
+shards step in one lockstep loop). Nor has ``ppermute``: the tournament
+merge reads every shard's list itself (``kernels.ops.topk_tournament``). A
+mesh of one process per card (NCCL through ``torch.distributed``) is later
+work; it would supply the same two operations on the same leading-axis
+layout, and a partner exchange for the tournament's rounds across cards.
 """
 from __future__ import annotations
 
@@ -29,16 +31,6 @@ class LocalMesh:
     @property
     def size(self) -> int:
         return int(self.shape[0])
-
-    def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
-        """``jax.lax.ppermute`` for a permutation of the shards: shard
-        ``dst`` receives shard ``src``'s block for each pair (src, dst) of
-        ``perm``."""
-        src = dict((d, s) for s, d in perm)
-        if sorted(src) != list(range(self.size)):
-            raise ValueError("ppermute takes a permutation of the shards")
-        return x[torch.tensor([src[d] for d in range(self.size)],
-                              device=x.device)]
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """``jax.lax.psum`` over the shard axis (the result, replicated,

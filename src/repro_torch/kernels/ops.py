@@ -9,7 +9,8 @@ impl resolution, at call time:
 Nothing falls back quietly: a kernel that fails to build or launch raises.
 The ops come in the batched forms their callers use: the engine's lane
 batches, ``quantized_similarity_many`` for compressed corpora, and
-``topk_merge`` over the rows of a tournament round.
+``topk_merge`` over the rows of a tournament round and ``topk_tournament``
+over a whole tournament.
 The single-lane ``pairwise_adjacency`` / ``greedy_diversify`` (for the
 per-query drivers) come with a later slice.
 """
@@ -25,7 +26,8 @@ from repro_torch.kernels.greedy_diversify import greedy_cuda
 from repro_torch.kernels.int8_similarity import int8_dot_cuda
 from repro_torch.kernels.pairwise_adjacency import adjacency_cuda
 from repro_torch.kernels.pq_lut_similarity import pq_lut_sum_cuda
-from repro_torch.kernels.topk_merge import topk_merge_cuda
+from repro_torch.kernels.topk_merge import (topk_merge_cuda,
+                                             topk_tournament_cuda)
 
 _DEFAULT_IMPL = None  # overridable via set_default_impl
 _IMPLS = ("auto", "ref", "cuda")
@@ -198,3 +200,22 @@ def topk_merge(ids_a: torch.Tensor, scores_a: torch.Tensor,
     ids, scores = topk_merge_cuda(*(t.reshape(-1, L).contiguous() for t in (
         _i32(ids_a), _f32(scores_a), _i32(ids_b), _f32(scores_b))))
     return ids.reshape(*lead, L), scores.reshape(*lead, L)
+
+
+def topk_tournament(ids: torch.Tensor, scores: torch.Tensor,
+                    impl: str | None = None):
+    """The sharded search's tournament over the shards' runs [P, B, L],
+    each sorted by (score desc, id asc), P a power of two >= 2: the [B, L]
+    rows shard 0 holds after log2(P) butterfly rounds of ``topk_merge``
+    -> (ids int32[B, L], scores f32[B, L]). On the kernel rung one launch
+    runs every round; its launches count under ``topk_merge``."""
+    if ids.dim() != 3 or scores.shape != ids.shape:
+        raise ValueError("topk_tournament takes ids and scores [P, B, L], "
+                         f"got {tuple(ids.shape)} and {tuple(scores.shape)}")
+    p = ids.shape[0]
+    if p < 2 or p & (p - 1):
+        raise ValueError(f"topk_tournament needs a power of two >= 2 of "
+                         f"runs, got P = {p}")
+    if resolve(impl, scores) == "ref":
+        return _ref.topk_tournament(ids, scores)
+    return topk_tournament_cuda(_i32(ids), _f32(scores))

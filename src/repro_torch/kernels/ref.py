@@ -108,6 +108,18 @@ def topk_merge(ids_a: torch.Tensor, scores_a: torch.Tensor,
                     torch.cat([scores_a, scores_b], -1), ids_a.shape[-1])
 
 
+def topk_tournament(ids: torch.Tensor, scores: torch.Tensor):
+    """The sharded search's tournament over the shards' runs [P, B, L]
+    (P a power of two): log2(P) butterfly rounds of ``topk_merge``, shard s
+    merging its list with shard s ^ 2^r's in round r; shard 0's rows
+    [B, L]."""
+    p = ids.shape[0]
+    for r in range(p.bit_length() - 1):
+        other = torch.arange(p, device=ids.device) ^ (1 << r)
+        ids, scores = topk_merge(ids, scores, ids[other], scores[other])
+    return ids[0], scores[0]
+
+
 def greedy_diversify(scores: torch.Tensor, adj: torch.Tensor, k: int,
                      valid: torch.Tensor | None = None):
     """Greedy diverse selection (paper §II-B-2) over a scored candidate tile.

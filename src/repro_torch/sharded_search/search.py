@@ -4,9 +4,10 @@
 The database is partitioned into P contiguous shards, each with its own
 proximity graph. Every query runs one beam search per shard (shard-local
 ids, offset to global ids by the shard's base), the shards' top-K lists
-combine through a tournament merge — log2(P) butterfly rounds of
-``ppermute`` and ``kernels.ops.topk_merge`` — or an all-gather and one sort,
-and diversification (div-A* or greedy) runs on the merged candidates.
+combine through a tournament merge — log2(P) butterfly rounds of a
+pairwise top-K merge, run as one ``kernels.ops.topk_tournament`` call — or
+an all-gather and one sort, and diversification (div-A* or greedy) runs on
+the merged candidates.
 Quantized indexes score compressed codes in the beams and rerank the merged
 frontier in float before diversifying (contract 13).
 
@@ -294,18 +295,15 @@ def _shard_beams(index: ShardedIndex, qs: torch.Tensor, k: int, L: int):
     return ids, scores, state.steps.reshape(index.num_shards, -1)
 
 
-def _tournament_merge(ids, scores, mesh):
-    """Butterfly merge of the shards' lists [P, B, k]: after log2(P)
-    rounds every shard holds the global top-k; one ``topk_merge`` call
-    (one launch) a round for every (shard, lane) row."""
+def _tournament_merge(ids, scores):
+    """Butterfly merge of the shards' lists [P, B, k]: shard 0's global
+    top-k after log2(P) rounds. The shards' lists already lie in one tensor,
+    so one ``topk_tournament`` call (one launch) runs every round, each lane
+    reading its partners' lists itself: no ``ppermute``."""
     p = ids.shape[0]
     if p & (p - 1):
         raise ValueError("tournament merge needs power-of-two shards")
-    for r in range(p.bit_length() - 1):
-        perm = [(i, i ^ (1 << r)) for i in range(p)]
-        ids, scores = kops.topk_merge(ids, scores, mesh.ppermute(ids, perm),
-                                      mesh.ppermute(scores, perm))
-    return ids[0], scores[0]
+    return kops.topk_tournament(ids, scores)
 
 
 def _allgather_merge(ids, scores, mesh, k: int):
@@ -320,7 +318,7 @@ def _merge(ids, scores, mesh, merge: str, k: int):
     if ids.shape[0] == 1:
         return ids[0], scores[0]
     if merge == "tournament":
-        return _tournament_merge(ids, scores, mesh)
+        return _tournament_merge(ids, scores)
     if merge == "allgather":
         return _allgather_merge(ids, scores, mesh, k)
     raise ValueError(f"unknown merge {merge!r}")

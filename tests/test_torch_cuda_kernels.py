@@ -235,6 +235,108 @@ def test_cuda_topk_merge_equals_plain_version(cuda_device, L):
     assert torch.equal(gi3.reshape(64, L), ri)
 
 
+def _tournament_runs(P, B, L, seed):
+    """The shards' runs [P, B, L] as ``_merge_runs`` makes them: ids drawn
+    per row from [0, 4L) (shards share ids), tied scores, +-0.0 and padding
+    tails; lane 0 of the last shard is all padding, and lane B - 1 of shard
+    1 repeats shard 0's with its zeros' signs flipped (ties on both keys,
+    other bits)."""
+    runs = [_merge_runs(B, L, seed + 7 * p)[p % 2] for p in range(P)]
+    ids = np.stack([r[0] for r in runs])
+    sc = np.stack([r[1] for r in runs])
+    ids[-1, 0], sc[-1, 0] = -1, -np.inf
+    ids[1, -1] = ids[0, -1]
+    sc[1, -1] = np.where(sc[0, -1] == 0.0, -sc[0, -1], sc[0, -1])
+    return ids, sc
+
+
+def _assert_tournament(ids, sc):
+    gi, gs = tops.topk_tournament(ids, sc, impl="cuda")
+    ri, rs = tops.topk_tournament(ids, sc, impl="ref")
+    assert torch.equal(gi, ri)
+    assert torch.equal(gs.view(torch.int32), rs.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 10, 32, 64, 100, 1000, 4096])
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("P", [2, 4, 8])
+def test_cuda_topk_tournament_equals_butterfly(cuda_device, P, B, L):
+    """One launch over [P, B, L] equals shard 0's rows after the plain
+    version's log2 P butterfly rounds, ids and score bits, runs sharing ids
+    across shards included. Lanes of fewer than 256 entries, and P = 8 at
+    L = 4096 (256 KB of runs a lane), search device memory; the rest are
+    staged in shared memory, past 2048 entries over several blocks."""
+    ids, sc = (torch.from_numpy(a).to(cuda_device)
+               for a in _tournament_runs(P, B, L, seed=P * 10_000 + L))
+    _assert_tournament(ids, sc)
+    # the two-run kernel's butterfly gives the same rows
+    mi, ms = ids, sc
+    for r in range(P.bit_length() - 1):
+        other = torch.arange(P, device=cuda_device) ^ (1 << r)
+        mi, ms = tops.topk_merge(mi, ms, mi[other], ms[other], impl="cuda")
+    gi, gs = tops.topk_tournament(ids, sc, impl="cuda")
+    assert torch.equal(gi, mi[0])
+    assert torch.equal(gs.view(torch.int32), ms[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_topk_tournament_routes_and_checks(cuda_device):
+    """Runs 4 bytes off a 16-byte boundary and L % 4 != 0 (staged by
+    4-byte copies), 64 runs (32 lanes an entry, two runs a lane), a lane
+    split over several blocks at each route, 300 launches in a row, the
+    launch count, and what the wrapper refuses."""
+    from repro_torch.kernels.topk_merge import topk_tournament_cuda
+
+    for P, B, L in ((4, 16, 32), (4, 3, 1000), (2, 5, 4096), (8, 4, 65)):
+        ids, sc = (torch.from_numpy(a).to(cuda_device)
+                   for a in _tournament_runs(P, B, L, seed=L))
+        _assert_tournament(_unaligned(ids), _unaligned(sc))
+    for P, B, L in ((8, 4, 33), (64, 2, 100), (8, 2, 8192)):
+        ids, sc = (torch.from_numpy(a).to(cuda_device)
+                   for a in _tournament_runs(P, B, L, seed=3))
+        _assert_tournament(ids, sc)
+    ids, sc = (torch.from_numpy(a).to(cuda_device)
+               for a in _tournament_runs(4, 16, 32, seed=4))
+    ri, rs = tops.topk_tournament(ids, sc, impl="ref")
+    tops.reset_launch_counts()
+    for _ in range(300):
+        gi, gs = tops.topk_tournament(ids, sc)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["topk_merge"] == 300
+    assert torch.equal(gi, ri) and torch.equal(gs, rs)
+    with pytest.raises(ValueError, match="power of two"):
+        topk_tournament_cuda(ids[:3].contiguous(), sc[:3].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        topk_tournament_cuda(ids.transpose(1, 2), sc.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        topk_tournament_cuda(ids[0], sc[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        topk_tournament_cuda(ids, sc.double())
+
+
+@pytest.mark.cuda
+def test_cuda_tournament_merge_is_one_launch(cuda_device, monkeypatch):
+    """The sharded path's tournament merge on the card: one kernel launch,
+    no two-run merge, shard 0's rows of the plain butterfly."""
+    from repro_torch.compat import make_mesh
+    from repro_torch.sharded_search import search as ssearch
+
+    def no_pairwise(*a, **kw):
+        raise AssertionError("the tournament ran a two-run merge")
+
+    monkeypatch.setattr(tops, "topk_merge", no_pairwise)
+    ids, sc = (torch.from_numpy(a).to(cuda_device)
+               for a in _tournament_runs(4, 16, 32, seed=5))
+    mesh = make_mesh((4,), ("data",), device=cuda_device)
+    tops.reset_launch_counts()
+    gi, gs = ssearch._merge(ids, sc, mesh, "tournament", 32)
+    assert tops.launch_counts()["topk_merge"] == 1
+    ri, rs = tops.topk_tournament(ids, sc, impl="ref")
+    assert torch.equal(gi, ri)
+    assert torch.equal(gs.view(torch.int32), rs.view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_cuda_occupied_prefix_equals_whole_queue(cuda_device, monkeypatch):
     """The sharded path on the card (4 shards of 2 000 rows, resumable

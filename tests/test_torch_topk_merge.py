@@ -115,3 +115,112 @@ def test_topk_merge_rungs_and_shapes():
         assert torch.equal(ids[r], ri) and torch.equal(sc[r], rs)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tops.topk_merge(*stack, impl="cuda")
+
+
+_jmerge_rows = jax.jit(jax.vmap(jref.topk_merge))
+
+
+def _shard_runs(rng, P, B, L, shared_ids=False):
+    """[P, B, L] runs sorted by (score desc, id asc) with tied scores,
+    -0.0 beside +0.0 and padding tails. Every shard draws its ids from one
+    pool, so equal keys meet across shards; with ``shared_ids`` shard 1
+    repeats shard 0's runs with their zeros' signs flipped (ties on both
+    keys, other bits)."""
+    pool = np.arange(3 * L + 2)
+    runs = [[_run(rng, L, pool, pad=int(rng.integers(0, L // 2 + 1)),
+                  ties=True, zeros=True) for _ in range(B)] for _ in range(P)]
+    ids = np.array([[r[0] for r in sh] for sh in runs])
+    sc = np.array([[r[1] for r in sh] for sh in runs])
+    if shared_ids:
+        ids[1] = ids[0]
+        sc[1] = np.where(sc[0] == 0.0, -sc[0], sc[0])
+    return ids, sc
+
+
+def _jax_butterfly(ids, sc):
+    """The reference's pairwise merge vmapped over the P * B (shard, lane)
+    rows of each butterfly round, shard s merging with s ^ 2^r; shard 0's
+    rows."""
+    P, B, L = ids.shape
+    ji, js = jnp.asarray(ids), jnp.asarray(sc)
+    for r in range(P.bit_length() - 1):
+        other = np.arange(P) ^ (1 << r)
+        ji, js = (a.reshape(P, B, L) for a in _jmerge_rows(
+            ji.reshape(-1, L), js.reshape(-1, L),
+            ji[other].reshape(-1, L), js[other].reshape(-1, L)))
+    return ji[0], js[0]
+
+
+@pytest.mark.parametrize("L", [1, 10, 40])
+@pytest.mark.parametrize("P", [2, 4, 8])
+def test_topk_tournament_matches_reference_butterfly(P, L):
+    """The plain rung of ``ops.topk_tournament`` equals the reference's
+    pairwise merge run as a butterfly, shard 0's rows: ids and score bits,
+    on runs with ties, +-0.0, padding and ids shared across shards."""
+    rng = np.random.default_rng(100 * P + L)
+    for shared in (False, True):
+        ids, sc = _shard_runs(rng, P, 3, L, shared_ids=shared)
+        got = tops.topk_tournament(torch.from_numpy(ids),
+                                   torch.from_numpy(sc), impl="ref")
+        assert got[0].shape == (3, L) and got[0].dtype == torch.int32
+        _assert_same(got, _jax_butterfly(ids, sc))
+
+
+@pytest.mark.parametrize("P", [2, 4, 8])
+def test_topk_tournament_is_the_first_L_of_all_runs(P):
+    """What the one-launch kernel computes: the tournament's result is the
+    first L of every shard's run concatenated in shard order and sorted by
+    (score desc, id asc), ties on both keys in that order."""
+    rng = np.random.default_rng(P + 7)
+    for shared in (False, True):
+        ids, sc = (torch.from_numpy(a)
+                   for a in _shard_runs(rng, P, 3, 40, shared_ids=shared))
+        got = tops.topk_tournament(ids, sc, impl="ref")
+        want = tref.sort_top(ids.permute(1, 0, 2).reshape(3, -1),
+                             sc.permute(1, 0, 2).reshape(3, -1), 40)
+        _assert_same(got, want)
+
+
+def test_topk_tournament_rejects_other_shapes():
+    """P must be a power of two >= 2 and the inputs [P, B, L] alike; the
+    cuda rung refuses a CPU tensor."""
+    def runs(*shape):
+        return (torch.zeros(shape, dtype=torch.int32),
+                torch.zeros(shape, dtype=torch.float32))
+
+    for shape in ((3, 2, 4), (6, 2, 4), (1, 2, 4)):
+        with pytest.raises(ValueError, match="power of two"):
+            tops.topk_tournament(*runs(*shape))
+    for shape in ((4, 8), (2, 2, 2, 4)):
+        with pytest.raises(ValueError, match=r"\[P, B, L\]"):
+            tops.topk_tournament(*runs(*shape))
+    with pytest.raises(ValueError, match=r"\[P, B, L\]"):
+        tops.topk_tournament(runs(4, 2, 4)[0], runs(4, 2, 5)[1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tops.topk_tournament(*runs(4, 2, 4), impl="cuda")
+
+
+def test_tournament_merge_is_one_topk_tournament_call(monkeypatch):
+    """The sharded path's tournament merge makes one ``topk_tournament``
+    call and no two-run merge, and gives the reference butterfly's rows."""
+    from repro_torch.compat import make_mesh
+    from repro_torch.sharded_search import search as ssearch
+
+    calls = []
+    real = tops.topk_tournament
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    def no_pairwise(*a, **kw):
+        raise AssertionError("the tournament ran a two-run merge")
+
+    monkeypatch.setattr(tops, "topk_tournament", counted)
+    monkeypatch.setattr(tops, "topk_merge", no_pairwise)
+    ids, sc = _shard_runs(np.random.default_rng(5), 4, 3, 10)
+    mesh = make_mesh((4,), ("data",), device="cpu")
+    got = ssearch._merge(torch.from_numpy(ids), torch.from_numpy(sc), mesh,
+                         "tournament", 10)
+    assert len(calls) == 1
+    _assert_same(got, _jax_butterfly(ids, sc))
