@@ -84,6 +84,33 @@ Phases:
    through ``sharded_progressive_diverse`` on the plain versions must give
    the same ids and certificates.
 
+7. The serving front door on phase 4's graph, eps and queries:
+   ``DiverseVectorDB(index=graph, num_lanes=16, max_k=10, default_ef=40,
+   cache_size=64, delta_capacity=256)``, prewarmed as phase 4's engine.
+   (a) ``search_batch`` of the 64 queries: each result (ids, score bits,
+   certificate, K_final) must equal phase 4's engine-served one, with no
+   cache hit; QPS, p50/p99 from ``db.stats()`` and the scheduler's share
+   of the wall (wall minus the engine's ``step``). (b) The first 16 again
+   through a second ``LaneScheduler`` over a fresh ``MutableBackend``,
+   lockstep admission, the drr policy and two tenants: the same results,
+   and served + shed + deferred + cache hits == offered. (c) The 64 again:
+   every result the cache admitted in (a) must hit, equal (a)'s bits, and
+   pass ``theorem2_recheck`` of its frontier rescored by the plain
+   similarity against the query that received it. (d) 200 deep-like rows
+   upserted and 64 ids of (a)'s results deleted, then the 64 queries and
+   the first 16 new rows as queries: no deleted id served, every
+   certificate passes ``theorem2_recheck`` over the live corpus, each new
+   row leads its merged frontier and is served first unless leaving it
+   out is the optimum (a diverse set holding it totals no more). (e)
+   ``db.rebuild(wait=False)`` while 32 fresh queries are served, then the
+   epoch swap and 16 more: every result valid at its (epoch, version)
+   tag, exactly one swap; the rebuild's seconds and the swap's drain
+   time. (e) runs on a facade built from the first ``FD_REBUILD_ROWS`` =
+   250 000 rows with (d)'s writes: at 1M rows it took the whole script
+   past 600 s (listed under ``reduced``). Phase 7 must launch sim_many,
+   sim_gather, the adjacency and the fused round; launches of its checks
+   are not counted.
+
 After phase 6: how many launches of pairwise_adjacency, fused_round and
 greedy_diversify ran at each (lanes, width) in phases 4 and 6, read from the
 engines' ``SignatureLog.counts`` (lanes as the log rounds them, to a power
@@ -142,6 +169,15 @@ MERGE_ROWS, MERGE_LS, MERGE_TIMED = 64, (10, 32, 128, 1000, 4096), (32, 4096)
 # (k = 10, K = 32 and 64)
 TOURNAMENT_LS = tuple(sorted({*MERGE_LS, 10, 32, 64}))
 TOURNAMENT_DEVICE_ROUTE = (8, 4096)   # (P, L): 256 KB of runs a lane
+# phase 7: the serving front door on phase 4's graph (cache and delta sizes,
+# the writes, and the queries of each part); FD_REBUILD_ROWS cuts (e) to a
+# facade of that many rows (None: (e) on phase 4's graph): its rebuild at
+# 1M rows took the whole script past 600 s
+FD_CACHE, FD_DELTA, FD_UPSERTS, FD_DELETES, FD_SELF_QUERIES = 64, 256, 200, 64, 16
+FD_REGIME_QUERIES, FD_REBUILD_QUERIES, FD_AFTER_SWAP = 16, 32, 16
+FD_REBUILD_ROWS = 250_000
+PATH7_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
+                 "pairwise_adjacency", "fused_round")
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
@@ -266,11 +302,15 @@ def assert_bits_equal(torch, got, want, what: str) -> None:
             f"bits (max {float((got - want).abs().max())})")
 
 
-def deep_like(torch, n: int, d: int, seed: int, device):
+def deep_like(torch, n: int, d: int, seed: int, device,
+              row_seed: int | None = None):
     """The repo's deep-like mixture (64 Gaussian centres, noise 0.7), made
-    on the card from ``seed``."""
+    on the card from ``seed``; with ``row_seed``, n further rows of the
+    same mixture (its centres from ``seed``, the rows from ``row_seed``)."""
     g = torch.Generator(device=device).manual_seed(seed)
     centers = torch.randn((64, d), generator=g, device=device)
+    if row_seed is not None:
+        g = torch.Generator(device=device).manual_seed(row_seed)
     which = torch.randint(0, 64, (n,), generator=g, device=device)
     return (centers[which]
             + torch.randn((n, d), generator=g, device=device) * 0.7).contiguous()
@@ -701,7 +741,7 @@ def main_path(torch, args, report, device):
     report["main_path"] = summary
     log("main path: " + json.dumps({k: v for k, v in summary.items()
                                     if k != "expansions"}))
-    return launches, graph, qs, eps
+    return launches, graph, qs, eps, results
 
 
 # ------------------------------------------------------------- phase 5 ----
@@ -1271,6 +1311,422 @@ def sharded_path(torch, report, graph, qs_np, eps, seed, device):
     return row, launches
 
 
+# ------------------------------------------------------------- phase 7 ----
+
+class PathLaunches:
+    """Kernel launches of a path driven in parts: ``bank()`` adds the
+    counters to the path's total and zeroes them, ``drop()`` zeroes them
+    (launches of a check, not of the path)."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.total = {name: 0 for name in ops.KERNELS}
+        ops.reset_launch_counts()
+
+    def bank(self):
+        for name, n in self.ops.launch_counts().items():
+            self.total[name] += n
+        self.ops.reset_launch_counts()
+
+    def drop(self):
+        self.ops.reset_launch_counts()
+
+
+def serve_polled(sched, backend, index, queries, snaps=None):
+    """Submit every query (pumping on backpressure, a shed request gives
+    None), then pump until all are done. After every pump each completed
+    request's harvest-time tag ``(epoch, version)`` and merged frontier are
+    read from the backend's lane slots (a slot holds until the lane's next
+    harvest); a cache hit is tagged with the index's snapshot at its
+    submit. Returns (requests, tags, frontiers) keyed by position."""
+    from repro_torch.serve.scheduler import (RequestDeferred, RequestShed,
+                                             SchedulerSaturated)
+
+    reqs, tags, fronts = [], {}, {}
+
+    def poll():
+        for i, r in enumerate(reqs):
+            if r is None or r.result is None or i in tags:
+                continue
+            if r.lane is not None:
+                meta = backend.last_meta[r.lane]
+                tags[i] = (meta["epoch"], meta["version"])
+                fronts[i] = backend.last_candidates[r.lane]
+
+    for q in queries:
+        while True:
+            try:
+                r = sched.submit(q)
+                if r.cache_hit:
+                    tags[len(reqs)] = (index.epoch, index.version)
+                reqs.append(r)
+                break
+            except RequestShed:
+                reqs.append(None)
+                break
+            except (SchedulerSaturated, RequestDeferred):
+                sched.pump()
+                poll()
+    while any(r is not None and r.result is None for r in reqs):
+        sched.pump()
+        poll()
+    return reqs, tags, fronts
+
+
+def oracle_frontier(torch, sim, index, q, cand_ids, device):
+    """A cached frontier as a plain audit of a hit sees it, scored against
+    ``q`` by the plain similarity on the card: before any write, the stored
+    frontier rescored (padding kept at the tail); after writes, its live
+    rows plus every live delta row, in (score desc, id asc) order."""
+    cand = np.asarray(cand_ids, np.int64)
+    if not index.mutated:
+        rows = torch.as_tensor(index.float_view()[np.maximum(cand, 0)],
+                               device=device)
+        sc = sim.query_sim(torch.as_tensor(q, device=device), rows,
+                           index.metric).cpu().numpy()
+        sc = np.where(cand >= 0, sc, -np.inf).astype(np.float32)
+        order = np.argsort(-sc, kind="stable")
+        return cand[order], sc[order]
+    g = cand[(cand >= 0) & ~index.deleted[np.maximum(cand, 0)]]
+    d = index.delta_ids()
+    ids = np.concatenate([g, d[~np.isin(d, g)]])
+    rows = torch.as_tensor(index.float_view()[ids], device=device)
+    sc = sim.query_sim(torch.as_tensor(q, device=device), rows,
+                       index.metric).cpu().numpy()
+    order = np.lexsort((ids, -sc))
+    return ids[order], sc[order]
+
+
+def check_self_query(torch, ops, da, index, res, front, self_id, eps,
+                     device) -> bool:
+    """An upserted row used as a query: the delta merge must rank it first
+    in the merged frontier, and the served set must hold it first — unless
+    the set served without it totals more than the best diverse set that
+    holds it (over the same frontier and the same adjacency kernel), so
+    that leaving it out is the optimum. Returns whether it came first."""
+    ids, sc = front[0], front[1]
+    if int(ids[0]) != self_id:
+        raise AssertionError(f"(d) upserted row {self_id} as a query: the "
+                             f"merged frontier starts with {int(ids[0])}")
+    if int(res.ids[0]) == self_id:
+        return True
+    if self_id in res.ids.tolist():
+        raise AssertionError(f"(d) upserted row {self_id} served, not first")
+    rows = torch.as_tensor(index.float_view()[ids.astype(np.int64)],
+                           device=device)
+    adj = ops.pairwise_adjacency(rows, eps, index.metric).cpu().numpy()
+    free = ~adj[0]
+    free[0] = False
+    k = len(res.ids)
+    best = da.div_astar(np.where(free, sc, -np.inf), adj, k - 1)
+    with_self = np.float32(sc[0]) + best.best_scores[k - 2]
+    if not with_self <= np.float32(res.total):
+        raise AssertionError(f"(d) upserted row {self_id} left out of a set "
+                             f"totalling {res.total}, though a diverse set "
+                             f"holding it totals {with_self}")
+    return False
+
+
+def check_valid_at_tag(results, tags, snaps, what):
+    """Every served id inside its snapshot's row range and live there."""
+    for i, r in enumerate(results):
+        epoch, version = tags[i]
+        n_at, dele_at = snaps[max(v for v in snaps if v <= version)]
+        ids = r.ids[r.ids >= 0]
+        if not ids.size or (ids >= n_at).any() or dele_at[ids].any():
+            raise AssertionError(f"{what}: request {i} serves ids not live "
+                                 f"at its tag (epoch {epoch}, version "
+                                 f"{version})")
+
+
+def front_door(torch, report, graph, qs_np, eps, served4, seed, device):
+    """Phase 7: the serving front door (``DiverseVectorDB``) on phase 4's
+    graph, eps and queries. Returns the path's launches of every kernel."""
+    from repro_torch.core import div_astar as da
+    from repro_torch.core import similarity as sim
+    from repro_torch.core import theorems
+    from repro_torch.core.batch_progressive import ProgressiveEngine
+    from repro_torch.db import DiverseVectorDB, Query
+    from repro_torch.index.mutable import MutableBackend, MutableIndex
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import LaneScheduler
+
+    out: dict = {}
+    nq = len(qs_np)
+    queries = [Query(q, k=K, eps=eps) for q in qs_np]
+    path = PathLaunches(ops)
+    t_path = time.perf_counter()
+
+    # (a) reads through the facade, with the cache attached
+    t0 = time.perf_counter()
+    db = DiverseVectorDB(index=graph, metric="l2", num_lanes=LANES, max_k=K,
+                         default_ef=EF, cache_size=FD_CACHE,
+                         delta_capacity=FD_DELTA, scheduler_kw=dict(
+                             prewarm_capacity=1024, prewarm_ks=(K,),
+                             prewarm_widths=(64,)), device=device)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    step_s = [0.0]
+    engine_step = db.engine.step
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        done = engine_step()
+        torch.cuda.synchronize()
+        step_s[0] += time.perf_counter() - t
+        return done
+
+    db.engine.step = timed_step
+    t0 = time.perf_counter()
+    res_a = db.search_batch(queries)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    st = db.stats()
+    path.bank()
+    for i, (r, p) in enumerate(zip(res_a, served4)):
+        if not (np.array_equal(r.ids, p.ids)
+                and np.array_equal(r.scores.view(np.int32),
+                                   p.scores.view(np.int32))
+                and r.stats.certified == p.stats.certified
+                and r.stats.K_final == p.stats.K_final):
+            raise AssertionError(f"(a) query {i}: the facade's result differs "
+                                 f"from phase 4's engine:\n{r}\n{p}")
+    if st["cache_hits"]:
+        raise AssertionError(f"(a): {st['cache_hits']} cache hits on "
+                             "distinct queries")
+    admitted = {i for i in range(nq) for e in db.cache._entries.values()
+                if np.array_equal(e.q, qs_np[i])}
+    out["a"] = dict(
+        queries=nq, wall_s=wall_a, qps=nq / wall_a,
+        p50_latency_s=st["p50_latency"], p99_latency_s=st["p99_latency"],
+        throughput=st["throughput"], engine_step_s=step_s[0],
+        scheduler_share=(wall_a - step_s[0]) / wall_a,
+        certified_share=st["certified_frac"], cache_admitted=len(admitted),
+        bit_equal_to_phase4=True)
+    log("phase 7 (a) facade, 64 queries, bit-equal to phase 4, 0 hits: "
+        + json.dumps(out["a"]))
+
+    # (b) the lockstep regime and the drr policy on a second stack
+    eng_b = ProgressiveEngine(graph, LANES, max_k=K, default_ef=EF)
+    sched_b = LaneScheduler(
+        backend=MutableBackend(eng_b, MutableIndex(graph=graph,
+                                                   device=device)),
+        admission="lockstep", policy="drr", prewarm=False)
+    offered = [Query(q, k=K, eps=eps, tenant=("a", "b")[i % 2])
+               for i, q in enumerate(qs_np[:FD_REGIME_QUERIES])]
+    t0 = time.perf_counter()
+    reqs_b, _, _ = serve_polled(sched_b, sched_b.backend, None, offered)
+    wall_b = time.perf_counter() - t0
+    path.bank()
+    st_b = sched_b.latency_stats()
+    served_b = sum(1 for r in reqs_b if r is not None and r.lane is not None)
+    if served_b + st_b["shed"] + st_b["deferred"] + st_b["cache_hits"] \
+            != len(offered):
+        raise AssertionError(f"(b): conservation fails: {st_b}")
+    for i, r in enumerate(reqs_b):
+        if r is None or not (np.array_equal(r.result.ids, res_a[i].ids)
+                             and np.array_equal(r.result.scores,
+                                                res_a[i].scores)
+                             and r.result.stats.certified
+                             == res_a[i].stats.certified):
+            raise AssertionError(f"(b) query {i}: lockstep + drr differs")
+    out["b"] = dict(queries=len(offered), wall_s=wall_b, served=served_b,
+                    shed=st_b["shed"], deferred=st_b["deferred"],
+                    cache_hits=st_b["cache_hits"],
+                    p50_latency_s=st_b["p50_latency"],
+                    p99_latency_s=st_b["p99_latency"],
+                    tenant_fairness=st_b["tenant_fairness"])
+    log("phase 7 (b) lockstep + drr, 2 tenants: same results, "
+        "conservation holds: " + json.dumps(out["b"]))
+    del sched_b, eng_b
+
+    # (c) the 64 queries again: every admitted result hits
+    hits_before = db.stats()["cache_hits"]
+    t0 = time.perf_counter()
+    reqs_c, _, _ = serve_polled(db.scheduler, db.backend, db.index, queries)
+    wall_c = time.perf_counter() - t0
+    path.bank()
+    hit_lat = []
+    for i, r in enumerate(reqs_c):
+        if r.cache_hit != (i in admitted):
+            raise AssertionError(f"(c) query {i}: admitted {i in admitted}, "
+                                 f"hit {r.cache_hit}")
+        if not (np.array_equal(r.result.ids, res_a[i].ids)
+                and np.array_equal(r.result.scores.view(np.int32),
+                                   res_a[i].scores.view(np.int32))):
+            raise AssertionError(f"(c) query {i}: differs from (a)")
+        if r.cache_hit:
+            hit_lat.append(r.latency)
+            e = r.cache_entry
+            ids, sc = oracle_frontier(torch, sim, db.index, r.q,
+                                        e.cand_ids, device)
+            ok, sel = theorems.theorem2_recheck(
+                db.index.float_view(), "l2", ids, sc, eps, K, device=device)
+            if not (ok and np.array_equal(sel, r.result.ids)):
+                raise AssertionError(f"(c) query {i}: the hit fails its "
+                                     "independent recheck")
+    path.drop()
+    st = db.stats()
+    hit_lat.sort()
+    out["c"] = dict(queries=nq, wall_s=wall_c,
+                    hits=st["cache_hits"] - hits_before,
+                    hit_share=(st["cache_hits"] - hits_before) / nq,
+                    hit_p50_latency_s=hit_lat[len(hit_lat) // 2]
+                    if hit_lat else None,
+                    revalidation_failures=st["cache"][
+                        "revalidation_failures"],
+                    admission_rejected=st["cache"]["rejected"])
+    log("phase 7 (c) duplicates: every admitted result hit, bit-equal and "
+        "re-proved: " + json.dumps(out["c"]))
+
+    # (d) writes: upserts and deletes, then the queries and the new rows
+    snaps = {db.index.version: (db.index.n_total, db.index.deleted.copy())}
+    new = deep_like(torch, FD_UPSERTS, D, seed, device,
+                    row_seed=seed + 700).cpu().numpy()
+    new_ids = db.upsert(new)
+    snaps[db.index.version] = (db.index.n_total, db.index.deleted.copy())
+    dead: list[int] = []
+    for r in res_a:
+        for i in r.ids.tolist():
+            if i >= 0 and i not in dead and len(dead) < FD_DELETES:
+                dead.append(i)
+    db.delete(dead)
+    snaps[db.index.version] = (db.index.n_total, db.index.deleted.copy())
+    if len(dead) != FD_DELETES:
+        raise AssertionError(f"(d): only {len(dead)} ids to delete")
+    self_q = [Query(v, k=K, eps=eps) for v in new[:FD_SELF_QUERIES]]
+    t0 = time.perf_counter()
+    reqs_d, tags_d, fronts_d = serve_polled(db.scheduler, db.backend,
+                                            db.index, queries + self_q)
+    wall_d = time.perf_counter() - t0
+    path.bank()
+    res_d = [r.result for r in reqs_d]
+    check_valid_at_tag(res_d, tags_d, snaps, "(d)")
+    certified_d = 0
+    self_first = 0
+    for i, r in enumerate(reqs_d):
+        if set(dead) & set(r.result.ids.tolist()):
+            raise AssertionError(f"(d) query {i}: a deleted id is served")
+        if i >= nq:
+            self_first += check_self_query(torch, ops, da, db.index,
+                                           r.result, fronts_d[i],
+                                           int(new_ids[i - nq]), eps, device)
+        if not r.result.stats.certified:
+            continue
+        certified_d += 1
+        if r.cache_hit:
+            ids, sc = oracle_frontier(torch, sim, db.index, r.q,
+                                        r.cache_entry.cand_ids, device)
+        else:
+            ids, sc = fronts_d[i][0], fronts_d[i][1]
+        ok, sel = theorems.theorem2_recheck(db.index.float_view(), "l2", ids,
+                                            sc, eps, K, device=device)
+        if not (ok and np.array_equal(sel, r.result.ids)):
+            raise AssertionError(f"(d) query {i}: the certificate fails "
+                                 "theorem2_recheck over the live corpus")
+    path.drop()
+    st = db.stats()
+    out["d"] = dict(upserts=FD_UPSERTS, deletes=len(dead),
+                    queries=len(reqs_d), wall_s=wall_d,
+                    qps=len(reqs_d) / wall_d,
+                    certified_share=certified_d / len(reqs_d),
+                    cache_hits=sum(r.cache_hit for r in reqs_d),
+                    self_queries=FD_SELF_QUERIES,
+                    self_queries_served_first=self_first,
+                    cache_invalidations=st["cache_invalidations"],
+                    index=st["index"])
+    log("phase 7 (d) writes: no deleted id served, every certificate "
+        "re-proved, each upserted row leads its merged frontier: "
+        + json.dumps(out["d"]))
+
+    # (e) a background rebuild while serving, then the epoch swap
+    if FD_REBUILD_ROWS is not None:
+        report.setdefault("reduced", []).append(
+            f"phase 7 (e) runs on a facade built from the first "
+            f"{FD_REBUILD_ROWS} rows (DiverseVectorDB(vectors=...)), with "
+            "(d)'s upserts and its deletes below that row: a rebuild at 1M "
+            "rows took the script past 600 s")
+        t0 = time.perf_counter()
+        db = DiverseVectorDB(graph.vectors[:FD_REBUILD_ROWS].cpu().numpy(),
+                             "l2", num_lanes=LANES, max_k=K, default_ef=EF,
+                             M=M_GRAPH, cache_size=FD_CACHE,
+                             delta_capacity=FD_DELTA, prewarm=False,
+                             device=device)
+        torch.cuda.synchronize()
+        out["e_facade_build_s"] = time.perf_counter() - t0
+        db.upsert(new)
+        db.delete([i for i in dead if i < FD_REBUILD_ROWS])
+        path.bank()
+        snaps = {db.index.version: (db.index.n_total,
+                                    db.index.deleted.copy())}
+    fresh = deep_like(torch, FD_REBUILD_QUERIES + FD_AFTER_SWAP, D, seed,
+                      device, row_seed=seed + 701).cpu().numpy()
+    fresh_q = [Query(v, k=K, eps=eps) for v in fresh]
+    marks: dict = {}
+    build = db.index._build
+
+    def timed_build(snap):
+        t = time.perf_counter()
+        g = build(snap)
+        torch.cuda.synchronize()
+        marks["build_s"] = time.perf_counter() - t
+        marks["ready"] = time.perf_counter()
+        return g
+
+    swap = db.backend.maybe_swap
+
+    def timed_swap():
+        ok = swap()
+        if ok:
+            marks["swapped"] = time.perf_counter()
+        return ok
+
+    db.index._build = timed_build
+    db.backend.maybe_swap = timed_swap
+    t0 = time.perf_counter()
+    db.rebuild(wait=False)
+    reqs_e, tags_e, _ = serve_polled(db.scheduler, db.backend, db.index,
+                                     fresh_q[:FD_REBUILD_QUERIES])
+    serve_e = time.perf_counter() - t0
+    served_during_build = "ready" not in marks
+    db.index.wait_rebuild()
+    db.scheduler.drain()
+    db.backend.maybe_swap()
+    reqs_f, tags_f, _ = serve_polled(db.scheduler, db.backend, db.index,
+                                     fresh_q[FD_REBUILD_QUERIES:])
+    path.bank()
+    st = db.stats()
+    if st["epoch_swaps"] != 1 or db.index.epoch != 1:
+        raise AssertionError(f"(e): {st['epoch_swaps']} epoch swaps (the "
+                             "background rebuild died?)")
+    res_e = [r.result for r in reqs_e + reqs_f]
+    tags = dict(tags_e)
+    tags.update({len(reqs_e) + i: t for i, t in tags_f.items()})
+    check_valid_at_tag(res_e, tags, snaps, "(e)")
+    epochs = sorted({t[0] for t in tags.values()})
+    out["e"] = dict(
+        rows=db.index.n_total, rebuild_s=marks["build_s"],
+        swap_drain_s=marks["swapped"] - marks["ready"],
+        served_while_building=FD_REBUILD_QUERIES, serve_s=serve_e,
+        build_outlasted_serving=served_during_build,
+        served_after_swap=FD_AFTER_SWAP, epochs_served=epochs,
+        epoch_swaps=st["epoch_swaps"],
+        certified_share=float(np.mean([r.stats.certified for r in res_e])))
+    log("phase 7 (e) rebuild + epoch swap: every result valid at its tag, "
+        "one swap: " + json.dumps(out["e"]))
+    out["path_s"] = time.perf_counter() - t_path
+    out["launches"] = {k: path.total[k] for k in PATH7_KERNELS}
+    missing = [k for k in PATH7_KERNELS if path.total[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the front door: "
+                             f"{missing}")
+    report["front_door"] = out
+    log("front door: " + json.dumps({k: v for k, v in out.items()
+                                     if k not in ("a", "b", "c", "d", "e")}))
+    return path.total
+
+
 def launch_histogram(counts: dict, launches: dict, what: str) -> dict:
     """{kernel: {"lanes x width": launches}} from an engine's
     ``SignatureLog.counts``: each signature of a kind in SIG_KERNELS is one
@@ -1425,13 +1881,16 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
 
-    launches, graph, qs_np, eps = main_path(torch, args, report, device)
+    launches, graph, qs_np, eps, served4 = main_path(torch, args, report,
+                                                     device)
     qrows, qlaunches = compressed_path(torch, report, graph, qs_np[:LANES],
                                        args.seed, device)
     timings.update(qrows)
     mrow, slaunches = sharded_path(torch, report, graph, qs_np, eps,
                                    args.seed, device)
     timings["topk_merge"] = mrow
+    flaunches = front_door(torch, report, graph, qs_np, eps, served4,
+                           args.seed, device)
     hists = [report["main_path"]["widths"], report["sharded_path"]["widths"]]
     report["path_shape_times"] = time_at_path_shapes(
         torch, ops, sim, graph.vectors, hists, args.seed + 300, timings)
@@ -1444,11 +1903,12 @@ def main() -> int:
                         / prof["sim_gather_launches"]
                         if prof["sim_gather_launches"] else None)
     row["device_us_kept"] = prof["sim_gather_launches"]
-    # each kernel's launches over the three paths' runs (each path's own
+    # each kernel's launches over the four paths' runs (each path's own
     # counts are in chip_smoke.json)
     kernels = []
     for name, row in timings.items():
-        total = launches[name] + qlaunches[name] + slaunches[name]
+        total = (launches[name] + qlaunches[name] + slaunches[name]
+                 + flaunches[name])
         kernels.append(dict(row, launches=int(total)))
     report["kernels"] = kernels
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:

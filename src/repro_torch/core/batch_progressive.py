@@ -513,8 +513,8 @@ class ProgressiveEngine:
     that finished; finished lanes can be re-admitted with a new query via
     ``admit``. ``kernel_impl`` ("auto", "cuda", "ref" or None for the
     ``kernels.ops`` default) picks the rung of every op the engine runs.
-    The reference's ``swap_graph`` and ``record_candidates`` serve the
-    mutable index and the result cache, and come with their slice.
+    ``record_candidates`` keeps each certificate's frontier for the result
+    cache and the mutable index; ``swap_graph`` installs a rebuilt epoch.
     """
 
     methods = ("pss", "pgs", "pds")
@@ -558,6 +558,12 @@ class ProgressiveEngine:
         self.out_ids = np.full((self.B, max_k), -1, np.int32)
         self.out_sc = np.zeros((self.B, max_k), np.float32)
         self._unharvested: list[int] = []
+        #: when True, each certificate-bearing round keeps the lane's sorted
+        #: candidate frontier on the host (``last_candidates[lane]`` =
+        #: ``(cand_ids, cand_scores, slack_or_None)``) so a result's
+        #: Theorem-2 certificate can be audited or cached after harvest
+        self.record_candidates = False
+        self.last_candidates: list = [None] * self.B
         # the engine scores the exact float corpus only
         self.compressed = False
 
@@ -601,6 +607,7 @@ class ProgressiveEngine:
         self.maxK[lane] = max_K or self.graph.size
         self.out_ids[lane] = -1
         self.out_sc[lane] = 0.0
+        self.last_candidates[lane] = None
         self.to_pss[lane] = method == "pss"
         self.status[lane] = _METHOD_STATUS[method]
 
@@ -646,6 +653,31 @@ class ProgressiveEngine:
         if self.status[lane] != LANE_DONE:
             raise RuntimeError(f"lane {lane} is not finished")
         self.status[lane] = LANE_FREE
+
+    def swap_graph(self, graph: FlatGraph) -> None:
+        """Install a new epoch's graph (the mutable index's rebuild swap).
+
+        Only legal with no occupied lane: per-lane search state (visited
+        bitmaps, beam queues) is shaped by the corpus size, so the serving
+        layer drains lanes first (contract 15; harvested-but-unrecycled
+        lanes are fine, their results live on the host). A fresh driver is
+        built over the new graph; the signature log carries across with a
+        ``"swap"`` note.
+        """
+        if self.active_count():
+            raise RuntimeError("cannot swap the graph under occupied lanes "
+                               "— drain in-flight lanes first (contract 15)")
+        log = self.driver.signatures
+        base_cap = self._capacity0 or min(256, _next_pow2(graph.size))
+        self.driver = BatchProgressiveDriver(
+            graph, torch.zeros((self.B, graph.dim), device=graph.device),
+            ef=self.default_ef, k=1, capacity0=base_cap,
+            max_capacity=self._max_capacity,
+            max_signatures=self._max_signatures,
+            kernel_impl=self.kernel_impl)
+        log.note("swap", self.B, graph.size)
+        self.driver.signatures = log
+        self.graph = graph
 
     # -- results ------------------------------------------------------------
     def result(self, lane: int) -> DiverseResult:
@@ -783,6 +815,12 @@ class ProgressiveEngine:
         self.out_ids[lane, :k_g] = np.where(s >= 0, ids_np[np.maximum(s, 0)], -1)
         self.out_sc[lane, :k_g] = np.where(s >= 0, sc_np[np.maximum(s, 0)], 0.0)
 
+    def _record(self, lane, ids_np, sc_np, slack) -> None:
+        """Keep the lane's first K candidates as its certificate frontier."""
+        Kl = int(min(self.K[lane], ids_np.shape[0]))
+        self.last_candidates[lane] = (ids_np[:Kl].astype(np.int32),
+                                      sc_np[:Kl].astype(np.float32), slack)
+
     # Alg. 3 final: one certified div-A* over the scheduled prefix.
     def _pds_final(self, fmask, finished) -> None:
         d = self.driver
@@ -794,6 +832,10 @@ class ProgressiveEngine:
                                 sc_np[gi])
                 d.stats.certified[lane] = (bool(complete[gi])
                                            and not bool(d.stats.exhausted[lane]))
+                if self.record_candidates:
+                    # pds certificates are Theorem-1-shaped: no minValue
+                    # slack to hand over, consumers must re-audit
+                    self._record(lane, ids_np[gi], sc_np[gi], None)
         d.stats.div_calls[fmask] += 1
         for lane in np.flatnonzero(fmask):
             self._finish(lane, finished)
@@ -824,6 +866,9 @@ class ProgressiveEngine:
                                     sc_np[gi])
                 s_K[lane] = (sc_np[gi, self.K[lane] - 1]
                              if self.K[lane] <= width else -np.inf)
+                if self.record_candidates:
+                    self._record(lane, ids_np[gi], sc_np[gi],
+                                 float(min_values[lane] - s_K[lane]))
         d.stats.div_calls[mask] += 1
         certified = mask & (min_values > s_K)
         d.stats.certified |= certified & complete

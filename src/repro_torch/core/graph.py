@@ -93,6 +93,17 @@ def make_flat_graph(vectors, neighbors, upper, entry: int, metric: str,
                      metric)
 
 
+def to_device(graph: FlatGraph, device) -> FlatGraph:
+    """The graph on ``device``: itself when it lies there already."""
+    device = torch.device(device)
+    if graph.device.type == device.type and device.index in (
+            None, graph.device.index):
+        return graph
+    return dataclasses.replace(
+        graph, vectors=graph.vectors.to(device),
+        neighbors=graph.neighbors.to(device), upper=graph.upper.to(device))
+
+
 def from_host(host: dict, device=None) -> FlatGraph:
     """Graph from the dict ``repro.core.graph.to_host`` returns (numpy
     arrays ``vectors``/``neighbors``/``upper``, int ``entry``, str

@@ -10,9 +10,10 @@ Nothing falls back quietly: a kernel that fails to build or launch raises.
 The ops come in the batched forms their callers use: the engine's lane
 batches, ``quantized_similarity_many`` for compressed corpora, and
 ``topk_merge`` over the rows of a tournament round and ``topk_tournament``
-over a whole tournament.
-The single-lane ``pairwise_adjacency`` / ``greedy_diversify`` (for the
-per-query drivers) come with a later slice.
+over a whole tournament. The single-lane ``pairwise_adjacency`` (the
+Theorem-2 audit's) is one launch of the batched adjacency kernel at B = 1;
+the single-lane ``greedy_diversify`` (for the per-query drivers) comes with
+a later slice.
 """
 from __future__ import annotations
 
@@ -149,6 +150,22 @@ def pairwise_adjacency_batch(vectors: torch.Tensor, ids: torch.Tensor, eps,
         return _ref.pairwise_adjacency(x, eps[:, None, None], metric,
                                        ids >= 0)
     return adjacency_cuda(_f32(vectors), _i32(ids), eps, metric)
+
+
+def pairwise_adjacency(x: torch.Tensor, eps, metric: str,
+                       valid: torch.Tensor | None = None,
+                       impl: str | None = None) -> torch.Tensor:
+    """Diversity-graph adjacency bool[K, K] of rows x[K, d] (no diagonal;
+    rows where ``valid`` is False are padding, masked out). On the kernel
+    rung: one launch of the batched adjacency kernel, one lane."""
+    if resolve(impl, x) == "ref":
+        return _ref.pairwise_adjacency(x, eps, metric, valid)
+    ids = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    if valid is not None:
+        ids = torch.where(valid.to(x.device), ids, -1)
+    eps = torch.as_tensor(eps, dtype=torch.float32, device=x.device)
+    return adjacency_cuda(_f32(x), ids[None].contiguous(), eps.reshape(1),
+                          metric)[0]
 
 
 def greedy_diversify_batch(scores: torch.Tensor, adj: torch.Tensor, k: int,
