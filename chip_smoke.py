@@ -67,8 +67,12 @@ Phases:
    shards: ids and score bits equal; timed at L = 32 and 4096. The
    tournament is what the path launches, so its times fill the kernels
    line's topk_merge row (the two-run kernel's sit beside, "pairwise").
-   (b) ``build_sharded_index``: 4 shards of 250 000 rows, M = 16, on the
-   card, and an int8 copy of it (each shard quantized, 8 rows per scale).
+   (b) ``DiverseVectorDB(x, "l2", shards=4, M=16, num_lanes=16,
+   max_k=10, default_ef=40, cache_size=64, delta_capacity=256)`` (the
+   engine's knobs as (d)'s) builds the index through the facade
+   (``build_sharded_index``: 4 shards of 250 000 rows, on the card); phase
+   6 takes ``db.index.sharded``; then an int8 copy of it (each shard
+   quantized, 8 rows per scale).
    (c) ``sharded_topk`` (k = 10, L = 40) of 16 queries: tournament and
    allgather merges give equal ids, and so does a rerun on the plain
    versions; recall@10 against the exact top-10 is recorded. Then
@@ -110,6 +114,35 @@ Phases:
    past 600 s (listed under ``reduced``). Phase 7 must launch sim_many,
    sim_gather, the adjacency and the fused round; launches of its checks
    are not counted.
+
+8. The sharded facade and elastic rescaling. (a) Phase 6's facade serves
+   phase 6 (d)'s 64 queries with ``search_batch``: each result (ids, score
+   bits, certificate, K_final) must equal phase 6 (d)'s, with no cache
+   hit; QPS, p50/p99 from ``db.stats()`` and the scheduler's share of the
+   wall. (b) ``DiverseVectorDB(rows, "l2", shards="auto",
+   elastic=ElasticPolicy(...), num_lanes=8)`` over the first ``EL_ROWS``
+   = 62 500 rows (listed under ``reduced``: with 250 000 and 125 000 the
+   script took 650 s and 672 s): ``compat.device_count()`` is
+   4, so it starts on 2 shards with the 4-shard target (16 lanes)
+   resharded and prewarmed at construction (seconds of each). Engine-
+   direct straddles on a bare engine over the same two indexes (16 lanes,
+   K0 = 16, eps at G^eps degree 100 over these rows): lanes admitted on 2
+   shards step once, ``rescale(4)``, finish; then 4 -> 2. Each straddling
+   lane must equal ``sharded_diverse_search`` on the final mesh at its
+   K_final, or be certified and pass ``theorem2_recheck`` of its frontier;
+   each event's pause is timed between device syncs. Then a burst of the
+   64 queries and idle pumps through the scheduler: at least one grow, one
+   shrink and one request admitted on the new mesh, every request served
+   certified and diverse, ``signature_log.unplanned == []``; QPS before
+   and after the grow, each event's pause. (c) On (b)'s facade: 200
+   upserts and 64 deletes, then ``db.rebuild(wait=False)`` while the 64
+   queries are served (the burst grows the mesh while the 2-shard epoch
+   builds), the swap (which reshards the rebuilt epoch onto 4 shards) and
+   16 fresh queries: every result valid at its (epoch, version) tag, no
+   deleted id served, every certificate re-proved by ``theorem2_recheck``,
+   epochs {0, 1}, one swap, one reshard; the rebuild's and the reshard's
+   seconds and the drain. Phase 8 must launch sim_many, sim_gather, the
+   adjacency and topk_merge; launches of its checks are not counted.
 
 After phase 6: how many launches of pairwise_adjacency, fused_round and
 greedy_diversify ran at each (lanes, width) in phases 4 and 6, read from the
@@ -178,6 +211,18 @@ FD_REGIME_QUERIES, FD_REBUILD_QUERIES, FD_AFTER_SWAP = 16, 32, 16
 FD_REBUILD_ROWS = 250_000
 PATH7_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
                  "pairwise_adjacency", "fused_round")
+# phase 8: the sharded facade (phase 6's, at 1M rows) and elastic rescaling
+# on a facade of the first EL_ROWS rows (250 000 and 125 000 took the
+# whole script to 650 s and 672 s, past its 600 s budget), 2 shards of EL_LANES lanes with the
+# 4-shard target of twice the lanes; its prewarm runs the budget ladder up
+# to EL_PREWARM_CAP so the burst meets planned signatures only; the
+# engine-direct straddles run EL_STRADDLE_LANES lanes from a lower budget
+# (K0 = EL_STRADDLE_K0), so more lanes are still running at the event
+EL_ROWS, EL_LANES, EL_PREWARM_CAP = 62_500, 8, 64
+EL_STRADDLE_LANES, EL_STRADDLE_K0 = 16, 16
+EL_POLICY = dict(shrink_depth=0, sustain=2, shrink_sustain=3, cooldown=3)
+PATH8_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
+                 "pairwise_adjacency", "topk_merge")
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
@@ -528,6 +573,7 @@ class StageTimer:
     def __init__(self, torch):
         self.torch = torch
         self.seconds: dict[str, float] = {}
+        self._wrapped: list = []
 
     def wrap(self, module, attr, stage):
         fn = getattr(module, attr)
@@ -543,6 +589,13 @@ class StageTimer:
             return out
 
         setattr(module, attr, timed)
+        self._wrapped.append((module, attr, fn))
+
+    def restore(self):
+        """Put back every function this timer wrapped."""
+        for module, attr, fn in reversed(self._wrapped):
+            setattr(module, attr, fn)
+        self._wrapped.clear()
 
 
 def profile_batch(torch, ops, run, batch_wall_s, what):
@@ -633,6 +686,19 @@ def assert_results(torch, sim, x, ids, scores, eps, what):
         raise AssertionError(f"{what}: duplicate ids in a result")
 
 
+def calibrate_eps(torch, sim, x, seed, device) -> float:
+    """eps at an expected G^eps degree of PHI over the rows of ``x``:
+    (n - 1) * P(sim > eps), from 4096^2 sampled pairs."""
+    n = x.shape[0]
+    g = torch.Generator(device=device).manual_seed(seed)
+    m = 4096
+    a = x[torch.randint(0, n, (m,), generator=g, device=device)]
+    b = x[torch.randint(0, n, (m,), generator=g, device=device)]
+    s = sim.pairwise_sim(a, b, "l2").flatten()
+    rank = int(math.ceil((1.0 - PHI / (n - 1)) * s.numel()))
+    return float(torch.kthvalue(s.cpu(), max(1, min(rank, s.numel()))).values)
+
+
 def main_path(torch, args, report, device):
     from repro_torch.core import batch_progressive as tbp
     from repro_torch.core.backend import LaneRequest
@@ -655,14 +721,7 @@ def main_path(torch, args, report, device):
     log(f"graph: n={n} d={D} M={M_GRAPH} built on the card in {build_s:.1f} s: "
         + json.dumps({k: round(v, 1) for k, v in build_timer.seconds.items()}))
 
-    # eps at an expected G^eps degree of PHI: (n-1) * P(sim > eps)
-    g = torch.Generator(device=device).manual_seed(args.seed + 1)
-    m = 4096
-    a = graph.vectors[torch.randint(0, n, (m,), generator=g, device=device)]
-    b = graph.vectors[torch.randint(0, n, (m,), generator=g, device=device)]
-    s = sim.pairwise_sim(a, b, "l2").flatten()
-    rank = int(math.ceil((1.0 - PHI / (n - 1)) * s.numel()))
-    eps = float(torch.kthvalue(s.cpu(), max(1, min(rank, s.numel()))).values)
+    eps = calibrate_eps(torch, sim, graph.vectors, args.seed + 1, device)
     log(f"eps = {eps:.6f} (expected G^eps degree {PHI})")
 
     timer = StageTimer(torch)
@@ -1139,7 +1198,9 @@ def check_topk_merge(torch, device, seed):
 
 def sharded_path(torch, report, graph, qs_np, eps, seed, device):
     """Phase 6: the sharded path on phase 4's corpus, queries and eps.
-    Returns topk_merge's row and the path's launches of every kernel."""
+    Returns topk_merge's row, the path's launches of every kernel, the
+    sharded facade its index was built through, and the engine's results
+    (query order)."""
     import dataclasses
 
     from repro_torch import quant
@@ -1147,6 +1208,7 @@ def sharded_path(torch, report, graph, qs_np, eps, seed, device):
     from repro_torch.compat import make_mesh
     from repro_torch.core import similarity as sim
     from repro_torch.core.backend import LaneRequest
+    from repro_torch.db import DiverseVectorDB
     from repro_torch.index import flat
     from repro_torch.kernels import ops
     from repro_torch.sharded_search import search as ssearch
@@ -1154,7 +1216,8 @@ def sharded_path(torch, report, graph, qs_np, eps, seed, device):
     out: dict = {}
     row, out["topk_merge_times"] = check_topk_merge(torch, device, seed)
 
-    # (b) set-up: the shard graphs on the card, and an int8 copy
+    # (b) set-up: the shard graphs on the card, built through the sharded
+    # facade (phase 8 (a) serves through it), and an int8 copy
     x = graph.vectors
     x_np = x.cpu().numpy()
     n = x.shape[0]
@@ -1162,8 +1225,15 @@ def sharded_path(torch, report, graph, qs_np, eps, seed, device):
     for attr in ("_exact_knn", "_alpha_prune", "_add_reverse_edges",
                  "_stitch_components", "_directed_repair"):
         build_timer.wrap(flat, attr, attr.lstrip("_"))
-    index, out["build_s"] = synced(torch, lambda: ss.build_sharded_index(
-        x_np, SHARDS, "l2", M=M_GRAPH, device=device))
+    db, out["build_s"] = synced(torch, lambda: DiverseVectorDB(
+        x_np, "l2", shards=SHARDS, M=M_GRAPH, num_lanes=LANES, max_k=K,
+        default_ef=EF, cache_size=FD_CACHE, delta_capacity=FD_DELTA,
+        backend_kw=dict(K0=K0, L_factor=L_FACTOR, max_rounds=MAX_ROUNDS,
+                        resume="beam"), device=device))
+    index = db.index.sharded
+    if db.index.n_total != n:
+        raise AssertionError(f"the facade padded {n} rows to "
+                             f"{db.index.n_total}")
     out["build_stage_s"] = build_timer.seconds
     c8 = [quant.quantize_int8(index.vectors[s], scale_rows=SCALE_ROWS)
           for s in range(SHARDS)]
@@ -1173,7 +1243,8 @@ def sharded_path(torch, report, graph, qs_np, eps, seed, device):
         scale_rows=SCALE_ROWS)
     del c8
     log(f"sharded index: {SHARDS} shards of {index.shard_size} rows, "
-        f"M={M_GRAPH}, built on the card in {out['build_s']:.1f} s: "
+        f"M={M_GRAPH}, built on the card through DiverseVectorDB(shards="
+        f"{SHARDS}) in {out['build_s']:.1f} s: "
         + json.dumps({k: round(v, 1) for k, v in build_timer.seconds.items()}))
     mesh = make_mesh((SHARDS,), ("data",), device=device)
 
@@ -1308,7 +1379,7 @@ def sharded_path(torch, report, graph, qs_np, eps, seed, device):
     report["sharded_path"] = out
     log("sharded path: " + json.dumps({k: v for k, v in out.items()
                                        if k != "expansions"}))
-    return row, launches
+    return row, launches, db, results
 
 
 # ------------------------------------------------------------- phase 7 ----
@@ -1727,6 +1798,401 @@ def front_door(torch, report, graph, qs_np, eps, served4, seed, device):
     return path.total
 
 
+# ------------------------------------------------------------- phase 8 ----
+
+def straddle(torch, eng, qs, eps, to):
+    """Engine-direct straddle: ``qs`` admitted, one round, ``rescale(to)``
+    (its pause timed between device syncs), the rest of the rounds.
+    Returns the lanes that straddled and each finished lane's result and
+    frontier, for ``check_straddle``."""
+    from repro_torch.core.backend import LaneRequest
+    from repro_torch.sharded_search.engine import LANE_RUN
+
+    for lane, q in enumerate(qs):
+        eng.admit(lane, LaneRequest(q, K, eps, method="sharded"))
+    eng.step()
+    for lane, _ in eng.harvest():
+        eng.recycle(lane)
+    lanes = [int(i) for i in np.flatnonzero(eng.status == LANE_RUN)]
+    frm = eng.num_shards
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not eng.rescale(to):
+        raise AssertionError(f"rescale({to}) from {frm} shards was a no-op")
+    torch.cuda.synchronize()
+    pause = time.perf_counter() - t0
+    done = {}
+    while eng.active_count():
+        eng.step()
+        for lane, res in eng.harvest():
+            done[lane] = (res, eng.last_candidates[lane])
+            eng.recycle(lane)
+    return dict(frm=frm, to=to, lanes=lanes, pause=pause, done=done)
+
+
+def check_straddle(ss, theorems, rec, qs, eps, final_index, final_mesh,
+                   rows, device, what) -> dict:
+    """Every straddling lane must equal ``sharded_diverse_search`` on the
+    final mesh at its K_final, or be certified and pass
+    ``theorem2_recheck`` of its frontier."""
+    fixed = rechecked = 0
+    for lane in rec["lanes"]:
+        res, (cand_ids, cand_sc) = rec["done"][lane]
+        ids, sc, _ = ss.sharded_diverse_search(
+            final_index, rows, qs[lane][None], K, eps, res.stats.K_final,
+            final_mesh)
+        if (np.array_equal(ids[0].cpu().numpy(), res.ids)
+                and np.array_equal(sc[0].cpu().numpy().view(np.int32),
+                                   res.scores.view(np.int32))):
+            fixed += 1
+            continue
+        ok, sel = theorems.theorem2_recheck(rows, "l2", cand_ids, cand_sc,
+                                            eps, K, device=device)
+        if not (res.stats.certified and ok and np.array_equal(sel, res.ids)):
+            raise AssertionError(f"{what} lane {lane}: neither equal to the "
+                                 f"fixed {final_index.num_shards}-shard mesh "
+                                 "nor a re-proved certificate")
+        rechecked += 1
+    return dict(from_shards=rec["frm"], to_shards=rec["to"],
+                lanes_straddled=len(rec["lanes"]), equal_to_fixed_mesh=fixed,
+                rechecked=rechecked, migration_pause_s=rec["pause"])
+
+
+def burst_qps(reqs, t0, t_split):
+    """Completions per second of the requests before and after ``t_split``
+    (the scheduler's clock), from ``t0`` to the last completion."""
+    done = sorted(r.t_done for r in reqs)
+    before = sum(t < t_split for t in done)
+    after = len(done) - before
+    return (before / (t_split - t0) if t_split > t0 else None,
+            after / (done[-1] - t_split) if after else None)
+
+
+def sharded_facade(torch, db6, qs_np, eps, served6) -> tuple[dict, dict]:
+    """Phase 8 (a): phase 6's 1M-row facade serves phase 6 (d)'s queries.
+    Returns the record and the part's launches of every kernel."""
+    from repro_torch.db import Query
+    from repro_torch.kernels import ops
+
+    nq = len(qs_np)
+    queries = [Query(q, k=K, eps=eps) for q in qs_np]
+    path = PathLaunches(ops)
+    step_s = [0.0]
+    engine_step = db6.engine.step
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        done = engine_step()
+        torch.cuda.synchronize()
+        step_s[0] += time.perf_counter() - t
+        return done
+
+    db6.engine.step = timed_step
+    t0 = time.perf_counter()
+    res_a = db6.search_batch(queries)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    path.bank()
+    st = db6.stats()
+    for i, (r, p) in enumerate(zip(res_a, served6)):
+        if not (np.array_equal(r.ids, p.ids)
+                and np.array_equal(r.scores.view(np.int32),
+                                   p.scores.view(np.int32))
+                and r.stats.certified == p.stats.certified
+                and r.stats.K_final == p.stats.K_final):
+            raise AssertionError(f"(a) query {i}: the sharded facade differs "
+                                 f"from phase 6's engine:\n{r}\n{p}")
+    if st["cache_hits"]:
+        raise AssertionError(f"(a): {st['cache_hits']} cache hits on "
+                             "distinct queries")
+    out = dict(
+        rows=db6.index.n_total, shards=st["shards"], queries=nq,
+        wall_s=wall_a, qps=nq / wall_a, p50_latency_s=st["p50_latency"],
+        p99_latency_s=st["p99_latency"], engine_step_s=step_s[0],
+        scheduler_share=(wall_a - step_s[0]) / wall_a,
+        certified_share=st["certified_frac"], bit_equal_to_phase6=True)
+    log(f"phase 8 (a) sharded facade at {db6.index.n_total} rows, {nq} "
+        "queries, bit-equal to phase 6 (d), 0 hits: " + json.dumps(out))
+    db6.engine.step = engine_step
+    return out, path.total
+
+
+def elastic(torch, report, x_np, qs_np, eps, seed, device
+            ) -> tuple[dict, dict]:
+    """Phase 8 (b) and (c): elastic rescaling on a facade of the first
+    ``EL_ROWS`` rows, then writes and a background rebuild with a rescale
+    during it. Returns the record and the part's launches of every
+    kernel."""
+    from repro_torch import compat
+    from repro_torch import sharded_search as ss
+    from repro_torch.core import similarity as sim
+    from repro_torch.core import theorems
+    from repro_torch.db import DiverseVectorDB, Query
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import ElasticPolicy
+    from repro_torch.sharded_search import engine as sengine
+    from repro_torch.sharded_search import search as ssearch
+
+    out: dict = {}
+    nq = len(qs_np)
+    queries = [Query(q, k=K, eps=eps) for q in qs_np]
+    path = PathLaunches(ops)
+
+    # (b) elastic: a facade of the first EL_ROWS rows, 2 shards, with the
+    # 4-shard target (twice the lanes) prepared at construction
+    report.setdefault("reduced", []).append(
+        f"phase 8 (b)-(c) run on an elastic facade built from the first "
+        f"{EL_ROWS} rows: a second 1M-row build would take the script past "
+        "its 600 s budget, and with 250000 and 125000 rows the whole script "
+        "took 650 s and 672 s (NVIDIA H100 80GB HBM3, 700 W)")
+    rows = x_np[:EL_ROWS]
+    prep = StageTimer(torch)
+    prep.wrap(sengine.ShardedEngine, "prepare_rescale", "prepare_rescale")
+    prep.wrap(sengine, "reshard_index", "reshard")
+    prep.wrap(sengine.ShardedEngine, "_run_ladder", "prewarm")
+    policy = ElasticPolicy(grow_depth=EL_LANES, **EL_POLICY)
+    db, build_s = synced(torch, lambda: DiverseVectorDB(
+        rows, "l2", shards="auto", elastic=policy, num_lanes=EL_LANES,
+        max_k=K, default_ef=EF, M=M_GRAPH, backend_kw=dict(resume="beam"),
+        scheduler_kw=dict(prewarm_capacity=EL_PREWARM_CAP, prewarm_ks=(K,)),
+        device=device))
+    prep.restore()
+    if (db.backend.num_shards, db.backend.rescale_options(),
+            compat.device_count()) != (2, (2, 4), 4):
+        raise AssertionError("shards='auto' under elastic= should start on "
+                             "2 of 4 shards with the 4-shard target")
+    sig = db.engine.signature_log
+    sig.freeze()
+    index2 = db.index.sharded
+    index4 = db.engine._rescale_targets[4][1]
+    mesh2 = compat.make_mesh((2,), ("data",), device=device)
+    mesh4 = compat.make_mesh((4,), ("data",), device=device)
+    path.bank()
+    out["b_setup"] = dict(rows=db.index.n_total, facade_build_s=build_s,
+                          prepare_rescale_s=prep.seconds["prepare_rescale"],
+                          reshard_s=prep.seconds["reshard"],
+                          prewarm_s=prep.seconds["prewarm"],
+                          lanes=(EL_LANES, db.engine._rescale_targets[4][2]))
+    log("phase 8 (b) elastic facade: " + json.dumps(out["b_setup"]))
+
+    # engine-direct straddles on a bare engine over the facade's indexes,
+    # at an eps of G^eps degree PHI over these rows (phase 4's eps is degree
+    # PHI over 1M rows, so a quarter of that here: most lanes would certify
+    # in their first round and none straddle)
+    S = EL_STRADDLE_LANES
+    eng = ss.ShardedEngine(index2, rows, mesh2, num_lanes=S,
+                           K0=EL_STRADDLE_K0, max_k=K, resume="beam",
+                           record_candidates=True)
+    eng.prepare_rescale(4, mesh4, index=index4, prewarm=False)
+    dev_rows = eng.all_vectors
+    eps_s = calibrate_eps(torch, sim, dev_rows, seed + 802, device)
+    grow = straddle(torch, eng, qs_np[:S], eps_s, 4)
+    shrink = straddle(torch, eng, qs_np[S:2 * S], eps_s, 2)
+    path.bank()
+    out["b_straddle"] = [dict(eps=eps_s, **check_straddle(
+        ss, theorems, rec, qs_np[at], eps_s, index, mesh, dev_rows, device,
+        what)) for rec, at, index, mesh, what in (
+            (grow, slice(0, S), index4, mesh4, "(b) grow"),
+            (shrink, slice(S, 2 * S), index2, mesh2, "(b) shrink"))]
+    path.drop()
+    if not all(r["lanes_straddled"] for r in out["b_straddle"]):
+        raise AssertionError("(b): a scale event with no lane straddling "
+                             f"it: {out['b_straddle']}")
+    del eng, dev_rows
+    log("phase 8 (b) engine-direct straddles: "
+        + json.dumps(out["b_straddle"]))
+
+    # the burst through the facade's scheduler, then idle pumps
+    sched = db.scheduler
+    reqs, i = [], 0
+    t_burst = sched.clock()
+    while i < nq or sched.pending or sched.inflight:
+        while i < nq and len(sched.pending) < 2 * EL_LANES:
+            reqs.append(sched.submit(queries[i]))
+            i += 1
+        sched.pump()
+    t_end = sched.clock()
+    for _ in range(4 * EL_POLICY["shrink_sustain"]):
+        sched.pump()
+        if any(e["to_shards"] < e["from_shards"] for e in sched.scale_events):
+            break
+    path.bank()
+    grows = [e for e in sched.scale_events if e["to_shards"] > e["from_shards"]]
+    shrinks = [e for e in sched.scale_events
+               if e["to_shards"] < e["from_shards"]]
+    # a pump rescales before it refills, so a request admitted at or after
+    # the grow's pump (and before the shrink) went into a lane of the new
+    # mesh; most finish within the pump that admitted them
+    on_new = [r for r in reqs if grows and r.t_admit >= grows[0]["t"]
+              and (not shrinks or r.t_admit < shrinks[0]["t"])]
+    admitted_on_new = len(on_new)
+    if not (grows and shrinks and admitted_on_new):
+        raise AssertionError(f"(b): grows {len(grows)}, shrinks "
+                             f"{len(shrinks)}, admitted on the new mesh "
+                             f"{admitted_on_new}")
+    if not all(r.result is not None and r.result.stats.certified
+               for r in reqs):
+        raise AssertionError("(b): a burst request was not served certified")
+    if sig.unplanned:
+        raise AssertionError(f"(b): unplanned signatures {sig.unplanned}")
+    res_b = torch.as_tensor(np.stack([r.result.ids for r in reqs]),
+                            device=device)
+    assert_results(torch, sim, torch.as_tensor(rows, device=device),
+                   res_b, torch.as_tensor(np.stack(
+                       [r.result.scores for r in reqs])), eps, "(b) burst")
+    qps_before, qps_after = burst_qps(reqs, t_burst, grows[0]["t"])
+    st = db.stats()
+    out["b_burst"] = dict(
+        queries=nq, wall_s=t_end - t_burst, qps=nq / (t_end - t_burst),
+        qps_before_grow=qps_before, qps_after_grow=qps_after,
+        p50_latency_s=st["p50_latency"], p99_latency_s=st["p99_latency"],
+        scale_events=[{k: e[k] for k in ("from_shards", "to_shards",
+                                          "pause_s", "pending", "inflight")}
+                      for e in sched.scale_events],
+        admitted_on_new_mesh=admitted_on_new,
+        admitted_to_new_lanes=sum(r.lane >= EL_LANES for r in on_new),
+        certified_share=1.0,
+        unplanned_signatures=len(sig.unplanned), shards_after=st["shards"])
+    log("phase 8 (b) burst: a grow, a shrink, admitted on the new mesh, "
+        "every request certified, no unplanned signature: "
+        + json.dumps(out["b_burst"]))
+
+    # (c) writes, then a background rebuild of the sharded epoch while a
+    # burst grows the mesh: the swap reshards the rebuilt epoch
+    snaps = {db.index.version: (db.index.n_total, db.index.deleted.copy())}
+    new = deep_like(torch, FD_UPSERTS, D, seed, device,
+                    row_seed=seed + 800).cpu().numpy()
+    db.upsert(new)
+    snaps[db.index.version] = (db.index.n_total, db.index.deleted.copy())
+    dead: list[int] = []
+    for r in reqs:
+        for j in r.result.ids.tolist():
+            if j >= 0 and j not in dead and len(dead) < FD_DELETES:
+                dead.append(j)
+    db.delete(dead)
+    snaps[db.index.version] = (db.index.n_total, db.index.deleted.copy())
+    path.bank()
+    marks: dict = {}
+    build = db.index._build
+
+    def timed_build(snap):
+        t = time.perf_counter()
+        art = build(snap)
+        torch.cuda.synchronize()
+        marks["build_s"] = time.perf_counter() - t
+        marks["shards_built"] = art.num_shards
+        marks["ready"] = sched.clock()
+        return art
+
+    swap = db.backend.maybe_swap
+
+    def timed_swap():
+        t = time.perf_counter()
+        ok = swap()
+        if ok:
+            torch.cuda.synchronize()
+            marks["swap_s"] = time.perf_counter() - t
+            marks["swapped"] = sched.clock()
+        return ok
+
+    reshard = StageTimer(torch)
+    reshard.wrap(ssearch, "reshard_index", "reshard")
+    db.index._build = timed_build
+    db.backend.maybe_swap = timed_swap
+    # idle pumps through the shrink's cooldown, so the burst below grows
+    # the mesh within its first pumps, while the build runs
+    for _ in range(EL_POLICY["cooldown"]):
+        sched.pump()
+    events0 = len(sched.scale_events)
+    t_rebuild = sched.clock()
+    db.rebuild(wait=False)
+    # the rebuild pads the corpus to the larger target (tombstoned rows)
+    snaps[db.index.version] = (db.index.n_total, db.index.deleted.copy())
+    reqs_c, tags_c, fronts_c = serve_polled(sched, db.backend, db.index,
+                                            queries)
+    db.index.wait_rebuild()
+    sched.drain()
+    db.backend.maybe_swap()
+    fresh = deep_like(torch, FD_AFTER_SWAP, D, seed, device,
+                      row_seed=seed + 801).cpu().numpy()
+    reqs_f, tags_f, fronts_f = serve_polled(
+        sched, db.backend, db.index, [Query(v, k=K, eps=eps) for v in fresh])
+    reshard.restore()
+    path.bank()
+    during = [e for e in sched.scale_events[events0:]
+              if t_rebuild <= e["t"] <= marks.get("ready", -1.0)]
+    if not (db.backend.swaps == 1 and db.backend.reshards == 1 and during
+            and marks.get("shards_built") != db.backend.num_shards):
+        raise AssertionError(
+            f"(c): swaps {db.backend.swaps}, reshards {db.backend.reshards}, "
+            f"scale events during the rebuild {len(during)}, built for "
+            f"{marks.get('shards_built')} shards, serving "
+            f"{db.backend.num_shards}")
+    res_c = [r.result for r in reqs_c + reqs_f]
+    tags = dict(tags_c)
+    tags.update({len(reqs_c) + j: t for j, t in tags_f.items()})
+    fronts = dict(fronts_c)
+    fronts.update({len(reqs_c) + j: f for j, f in fronts_f.items()})
+    check_valid_at_tag(res_c, tags, snaps, "(c)")
+    certified_c = 0
+    for j, r in enumerate(res_c):
+        if set(dead) & set(r.ids.tolist()):
+            raise AssertionError(f"(c) request {j}: a deleted id is served")
+        if not r.stats.certified:
+            continue
+        certified_c += 1
+        n_at = snaps[max(v for v in snaps if v <= tags[j][1])][0]
+        ok, sel = theorems.theorem2_recheck(
+            db.index.float_view()[:n_at], "l2", fronts[j][0], fronts[j][1],
+            eps, K, device=device)
+        if not (ok and np.array_equal(sel, r.ids)):
+            raise AssertionError(f"(c) request {j}: the certificate fails "
+                                 "theorem2_recheck over its corpus")
+    path.drop()
+    epochs = sorted({t[0] for t in tags.values()})
+    if epochs != [0, 1]:
+        raise AssertionError(f"(c): results from epochs {epochs}")
+    out["c"] = dict(
+        upserts=FD_UPSERTS, deletes=len(dead), rows=db.index.n_total,
+        rebuild_s=marks["build_s"], shards_built=marks["shards_built"],
+        reshard_s=reshard.seconds.get("reshard"), swap_s=marks["swap_s"],
+        swap_drain_s=marks["swapped"] - marks["ready"],
+        scale_events_during_rebuild=[(e["from_shards"], e["to_shards"])
+                                     for e in during],
+        served_while_building=nq, served_after_swap=FD_AFTER_SWAP,
+        epochs_served=epochs, epoch_swaps=db.backend.swaps,
+        reshards_at_swap=db.backend.reshards,
+        certified_share=certified_c / len(res_c),
+        shards_after=db.backend.num_shards)
+    log("phase 8 (c) writes + rebuild with a rescale during it: every result "
+        "valid at its tag, nothing deleted served, every certificate "
+        "re-proved, one resharded swap: " + json.dumps(out["c"]))
+    return out, path.total
+
+
+def elastic_path(torch, report, db6, x_np, qs_np, eps, served6, seed,
+                 device):
+    """Phase 8: the sharded facade (a) and elastic rescaling (b), (c).
+    Returns the path's launches of every kernel."""
+    t_path = time.perf_counter()
+    out, launches = sharded_facade(torch, db6, qs_np, eps, served6)
+    out = dict(a=out)
+    rec, more = elastic(torch, report, x_np, qs_np, eps, seed, device)
+    out.update(rec)
+    launches = {k: launches[k] + more[k] for k in launches}
+    out["path_s"] = time.perf_counter() - t_path
+    out["launches"] = {k: launches[k] for k in PATH8_KERNELS}
+    missing = [k for k in PATH8_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the sharded facade "
+                             f"and the elastic path: {missing}")
+    report["elastic"] = out
+    log("phase 8: " + json.dumps({k: out[k] for k in ("path_s",
+                                                        "launches")}))
+    return launches
+
+
 def launch_histogram(counts: dict, launches: dict, what: str) -> dict:
     """{kernel: {"lanes x width": launches}} from an engine's
     ``SignatureLog.counts``: each signature of a kind in SIG_KERNELS is one
@@ -1886,11 +2352,14 @@ def main() -> int:
     qrows, qlaunches = compressed_path(torch, report, graph, qs_np[:LANES],
                                        args.seed, device)
     timings.update(qrows)
-    mrow, slaunches = sharded_path(torch, report, graph, qs_np, eps,
-                                   args.seed, device)
+    mrow, slaunches, db6, served6 = sharded_path(torch, report, graph, qs_np,
+                                                 eps, args.seed, device)
     timings["topk_merge"] = mrow
     flaunches = front_door(torch, report, graph, qs_np, eps, served4,
                            args.seed, device)
+    elaunches = elastic_path(torch, report, db6, graph.vectors.cpu().numpy(),
+                             qs_np, eps, served6, args.seed, device)
+    del db6
     hists = [report["main_path"]["widths"], report["sharded_path"]["widths"]]
     report["path_shape_times"] = time_at_path_shapes(
         torch, ops, sim, graph.vectors, hists, args.seed + 300, timings)
@@ -1903,12 +2372,12 @@ def main() -> int:
                         / prof["sim_gather_launches"]
                         if prof["sim_gather_launches"] else None)
     row["device_us_kept"] = prof["sim_gather_launches"]
-    # each kernel's launches over the four paths' runs (each path's own
+    # each kernel's launches over the five paths' runs (each path's own
     # counts are in chip_smoke.json)
     kernels = []
     for name, row in timings.items():
         total = (launches[name] + qlaunches[name] + slaunches[name]
-                 + flaunches[name])
+                 + flaunches[name] + elaunches[name])
         kernels.append(dict(row, launches=int(total)))
     report["kernels"] = kernels
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:

@@ -20,6 +20,21 @@ import torch
 
 from repro_torch import resolve_device
 
+#: the shard slots the mesh on one device offers: what ``device_count``
+#: reports, the count every reference mesh check forces on the host
+#: (``--xla_force_host_platform_device_count=4``)
+LOCAL_DEVICE_COUNT = 4
+
+
+def device_count() -> int:
+    """Counterpart of ``jax.device_count()`` for the mesh on one device:
+    the facade reads it to choose ``shards="auto"`` and its elastic targets.
+    The shard axis is virtual here (P shards of one process on one card),
+    so this is the fixed :data:`LOCAL_DEVICE_COUNT`, not the number of
+    cards. A mesh of one process per card (ROADMAP queue 1 D) replaces it
+    with the process group's world size."""
+    return LOCAL_DEVICE_COUNT
+
 
 @dataclasses.dataclass(frozen=True)
 class LocalMesh:

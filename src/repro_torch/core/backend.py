@@ -10,9 +10,10 @@
   ``core.batch_progressive.ProgressiveEngine``,
   ``sharded_search.engine.ShardedEngine`` and the write-path decorator
   ``index.mutable.MutableBackend``.
-* ``RescalableBackend`` — a ``LaneBackend`` whose mesh can follow traffic.
-  No backend of this package implements it yet, so the scheduler's
-  ``elastic=`` refuses every one of them.
+* ``RescalableBackend`` — a ``LaneBackend`` whose mesh can follow traffic:
+  ``ShardedEngine``, and ``MutableBackend`` over one (it is then a
+  ``index.mutable.RescalableMutableBackend``). The scheduler's
+  ``elastic=`` refuses every other backend.
 
 Lifecycle of one lane, as the scheduler drives it::
 

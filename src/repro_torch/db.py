@@ -1,5 +1,5 @@
 """``DiverseVectorDB``: the one front door to the serving stack (port of
-``repro.db``, single-host branch).
+``repro.db``).
 
 The facade assembles index → backend → scheduler → cache from one
 constructor and exposes the complete serving surface:
@@ -18,9 +18,10 @@ constructor and exposes the complete serving surface:
   stats in one snapshot.
 
 Everything underneath stays reachable (``db.scheduler``, ``db.backend``,
-``db.index``, ``db.cache``). The graph and the engine live on ``device``
-(``cuda`` unless given); the corpus buffer, the delta and the bitmap stay
-on the host. ``shards=``, ``elastic=``, ``quantized=`` and
+``db.index``, ``db.cache``). The graph or shards and the engine live on
+``device`` (``cuda`` unless given); the corpus buffer, the delta and the
+bitmap stay on the host. The mesh is P shards on that one device
+(``compat.LocalMesh``). ``quantized=`` without ``shards=`` and
 ``builder="hnsw"`` raise ``NotImplementedError`` naming the ROADMAP item
 each waits on.
 """
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch import compat
 from repro_torch.core.batch_progressive import ProgressiveEngine
 from repro_torch.core.graph import FlatGraph
 from repro_torch.core.pgs import DiverseResult
@@ -36,6 +38,7 @@ from repro_torch.index.mutable import (MutableBackend, MutableIndex,
 from repro_torch.serve.query import Query
 from repro_torch.serve.scheduler import (LaneScheduler, RequestDeferred,
                                          RequestShed, SchedulerSaturated)
+from repro_torch.sharded_search.engine import ShardedEngine
 
 __all__ = ["DiverseVectorDB", "Query"]
 
@@ -47,15 +50,33 @@ class DiverseVectorDB:
     device) or a prebuilt ``index=`` (a ``FlatGraph``) seeds the corpus;
     ``metric`` in {"l2", "ip", "cos"}.
 
+    * ``shards=None`` serves single-host (``ProgressiveEngine``); an int
+      builds a ``ShardedEngine`` over that many shards (``mesh=``
+      optionally supplies the mesh; by default one of ``shards`` on the
+      ``axis`` axis). The corpus is padded with tombstoned rows to split
+      evenly. ``shards="auto"`` picks the largest power of two
+      ``compat.device_count()`` allows — or, under ``elastic=``, half of
+      it, leaving room to grow.
+    * ``elastic=`` (True or a ``serve.scheduler.ElasticPolicy``) makes the
+      sharded mesh follow traffic (contract 16): the two standard targets
+      (the device-count power of two and its half) are resharded and
+      prepared at construction, each with ``num_lanes * t // shards``
+      lanes, and the scheduler migrates the corpus and every in-flight
+      lane between them on sustained queue depth, at the pump boundary.
+      The corpus is padded to divisibility by the larger target.
+    * ``quantized`` in {None, "int8", "pq"} (with ``shards=``) stores the
+      shards compressed (exact float rerank before certificates, contract
+      13; the delta keeps int8 codes too and is always float-reranked).
     * ``cache_size=N`` attaches the semantic result cache, live-bound to
       the mutable index so hits revalidate against the written corpus;
       ``policy`` / ``cost_model`` configure admission
       (``serve.policies``).
     * ``embed=`` (a ``str -> vector`` callable) enables text queries.
-    * ``num_lanes`` / ``max_k`` / ``default_ef`` / ``M`` /
-      ``delta_capacity`` / ``background_rebuild`` size the stack;
-      ``backend_kw`` passes extra ``ProgressiveEngine`` knobs through
-      (e.g. ``dict(kernel_impl="ref")``); ``scheduler_kw`` likewise for
+    * ``num_lanes`` / ``max_k`` / ``default_ef`` / ``M`` / ``builder`` /
+      ``delta_capacity`` / ``background_rebuild`` / ``seed`` size the
+      stack; ``backend_kw`` passes extra engine knobs through (e.g.
+      ``dict(kernel_impl="ref")`` single-host, ``dict(K0=16,
+      resume="beam")`` sharded); ``scheduler_kw`` likewise for
       ``LaneScheduler`` (e.g. ``dict(admission="lockstep",
       prewarm_capacity=1024)``).
     """
@@ -68,24 +89,78 @@ class DiverseVectorDB:
                  embed=None, num_lanes: int = 8, max_k: int = 16,
                  default_ef: int = 40, M: int = 16, builder: str = "knng",
                  delta_capacity: int = 256, background_rebuild: bool = True,
-                 prewarm: bool = True, elastic=None,
-                 backend_kw: dict | None = None,
+                 mesh=None, axis: str = "data", prewarm: bool = True,
+                 elastic=None, seed: int = 0, backend_kw: dict | None = None,
                  scheduler_kw: dict | None = None, device=None):
-        refuse_unported(shards=shards, quantized=quantized, builder=builder,
-                        elastic=elastic)
+        refuse_unported(shards=shards, quantized=quantized, builder=builder)
         self.embed = embed
+        elastic = elastic or None
+        shard_align = None
+        elastic_targets: tuple[int, ...] = ()
+        if shards == "auto" or elastic is not None:
+            p_big = 1
+            while p_big * 2 <= compat.device_count():
+                p_big *= 2
+        if shards == "auto":
+            # leave room to grow when elastic; otherwise the whole mesh
+            shards = max(1, p_big // 2) if elastic is not None else p_big
+        if elastic is not None:
+            if shards is None:
+                raise ValueError("elastic= needs a sharded backend — pass "
+                                 "shards=int or shards='auto'")
+            if p_big < 2:
+                raise ValueError(
+                    "elastic serving needs >= 2 devices to scale between "
+                    f"(found {compat.device_count()})")
+            p_small = p_big // 2
+            if shards not in (p_small, p_big):
+                raise ValueError(
+                    "elastic serving scales between the standard targets "
+                    f"{p_small} and {p_big}; start on one of them (got "
+                    f"shards={shards})")
+            elastic_targets = tuple(t for t in (p_small, p_big)
+                                    if t != shards)
+            shard_align = p_big
         self.index = MutableIndex(
             vectors, metric, graph=index, delta_capacity=delta_capacity,
-            M=M, builder=builder, background=background_rebuild,
+            M=M, builder=builder, shards=shards, shard_align=shard_align,
+            quantized=quantized, background=background_rebuild, seed=seed,
             device=device)
-        engine = ProgressiveEngine(
-            self.index.graph, num_lanes, max_k=max_k,
-            default_ef=default_ef, **dict(backend_kw or {}))
+        backend_kw = dict(backend_kw or {})
+        if shards is not None:
+            if mesh is None:
+                mesh = compat.make_mesh((shards,), (axis,),
+                                        device=self.index.device)
+            self.mesh = mesh
+            n_epoch = (self.index.sharded.num_shards
+                       * self.index.sharded.shard_size)
+            engine = ShardedEngine(
+                self.index.sharded, self.index.float_view()[:n_epoch],
+                mesh, num_lanes, axis=axis, max_k=max_k,
+                default_ef=default_ef, **backend_kw)
+        else:
+            self.mesh = None
+            engine = ProgressiveEngine(
+                self.index.graph, num_lanes, max_k=max_k,
+                default_ef=default_ef, **backend_kw)
         self.backend = MutableBackend(engine, self.index)
+        skw = dict(scheduler_kw or {})
         self.scheduler = LaneScheduler(
             backend=self.backend, policy=policy, cost_model=cost_model,
-            cache_size=cache_size, prewarm=prewarm,
-            **dict(scheduler_kw or {}))
+            cache_size=cache_size, prewarm=prewarm, elastic=elastic, **skw)
+        # the scale event's costs are paid here (contract 16): the corpus
+        # resharded onto each elastic target and its dispatch ladder run
+        # once, so the scheduler's trigger only migrates between rounds.
+        # Serving capacity follows the mesh: a target's lane count scales
+        # with its shards (floor 1), so a grow adds lanes and a shrink
+        # returns them.
+        for t in elastic_targets:
+            self.backend.prepare_rescale(
+                t, compat.make_mesh((t,), (axis,), device=self.index.device),
+                M=M, builder=builder, prewarm=prewarm,
+                max_capacity=skw.get("prewarm_capacity"),
+                ks=tuple(skw.get("prewarm_ks") or ()),
+                num_lanes=max(1, num_lanes * t // shards))
 
     @property
     def cache(self):

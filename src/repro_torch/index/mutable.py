@@ -1,5 +1,5 @@
 """Online mutable index: delta segment + deletion bitmap + epoch swap (port
-of ``repro.index.mutable``, single-host branch).
+of ``repro.index.mutable``).
 
 The paper's framework assumes a static corpus; real serving takes writes
 concurrently with reads. This module adds the incremental path as a
@@ -10,7 +10,9 @@ progressive search machinery stays untouched:
   (append-only) host corpus buffer. They are not in any graph yet; instead
   every harvested lane's candidate frontier is merged with a flat scan of
   the live delta (one ``kernels.ops.batch_similarity`` launch over the
-  delta's rows, moved to the device per call).
+  delta's rows, moved to the device per call; an int8 corpus also scores
+  the delta's int8 codes with ``quantized_similarity_many``, but the
+  merged frontier always carries exact float scores: contract 13).
 * **Deletion bitmap** — ``delete`` tombstones ids in place. Vectors are
   never moved or reused (ids are positional and append-only), so every id
   means the same vector in every epoch; the bitmap is applied at harvest,
@@ -18,16 +20,22 @@ progressive search machinery stays untouched:
   revalidates against it. Bitmap and delta stay host numpy: a device
   scatter with repeated indices would not be deterministic.
 * **Background rebuild and epoch swap** — when the delta fills,
-  ``request_rebuild`` builds a fresh graph (``index.flat.build_knn_graph``
-  on the index's device) over a snapshot of the rows, optionally on a
+  ``request_rebuild`` builds a fresh structure (``index.flat.build_knn_graph``
+  single-host, ``sharded_search.build_sharded_index`` with ``shards=``, on
+  the index's device) over a snapshot of the rows, optionally on a
   background thread. The swap is installed **between rounds**:
-  ``MutableBackend.free_lanes`` stops admitting while a built graph is
+  ``MutableBackend.free_lanes`` stops admitting while a built structure is
   pending, lets in-flight lanes drain, and installs the new epoch on an
-  idle engine (``swap_graph``). Per-lane search state is shaped by the
-  corpus size, so the drain barrier is what makes the swap atomic. A
-  background build calls CUDA from its own thread on the default stream,
-  so it serializes with serving; an exception there ends the thread and no
-  swap is ever installed.
+  idle engine (``swap_graph`` / ``swap_index``). Per-lane search state is
+  shaped by the corpus size, so the drain barrier is what makes the swap
+  atomic. A background build calls CUDA from its own thread on the default
+  stream, so it serializes with serving; an exception there is kept and
+  raised by the next ``swap_ready`` / ``wait_rebuild``, so it reaches the
+  serving loop.
+* **Elastic rescale** (``shards=``, contract 16) — over a
+  ``ShardedEngine`` the backend is a ``RescalableMutableBackend``: a
+  rescale moves the epoch's index to the new shard count, and a rebuild
+  that was built for the old count is resharded when it swaps in.
 
 Contract 15 (``docs/ARCHITECTURE.md``): a search straddling an epoch swap
 returns results valid against one epoch or the other, never a mix — every
@@ -42,8 +50,8 @@ when the frontier carries padding, i.e. the graph was exhausted). The
 merged frontier adds every live delta point and drops tombstones. The
 re-audit certifies with ``min_value > max(s_K_merged, s_K_engine)``.
 
-Not ported here: a sharded epoch (``shards=``), compressed corpora
-(``quantized=``) and the HNSW builder; each raises ``NotImplementedError``
+Not ported here: a compressed single-host corpus (``quantized=`` without
+``shards=``) and the HNSW builder; each raises ``NotImplementedError``
 naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -54,8 +62,9 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import quant, resolve_device
 from repro_torch.core import theorems
+from repro_torch.core.backend import RescalableBackend
 from repro_torch.core.graph import FlatGraph, to_device
 from repro_torch.core.pgs import DiverseResult
 from repro_torch.kernels import ops as kops
@@ -78,16 +87,11 @@ def _compact_served(ids, scores, live):
     return out_ids, out_sc
 
 
-def refuse_unported(*, shards=None, quantized=None, builder="knng",
-                    elastic=None) -> None:
+def refuse_unported(*, shards=None, quantized=None,
+                    builder="knng") -> None:
     """Raise ``NotImplementedError`` for the facade's branches this package
     does not serve yet, naming the ROADMAP item each waits on."""
-    if shards is not None or elastic:
-        what = "shards=" if shards is not None else "elastic="
-        raise NotImplementedError(
-            f"{what}: the sharded epoch (ShardedEngine.swap_index and the "
-            "rescale members) is not ported yet — ROADMAP queue 1 C")
-    if quantized is not None:
+    if quantized is not None and not shards:
         raise NotImplementedError(
             "quantized=: the single-host engine over a quantized graph "
             "(ProgressiveEngine.compressed, contract 13) is not ported yet "
@@ -100,19 +104,23 @@ def refuse_unported(*, shards=None, quantized=None, builder="knng",
 
 class MutableIndex:
     """Append-only host corpus + delta segment + deletion bitmap +
-    epoch'd search graph on ``device`` (``cuda`` unless given).
+    epoch'd search structure (``FlatGraph``, or ``ShardedIndex`` with
+    ``shards=``) on ``device`` (``cuda`` unless given).
 
     Ids are **positional and stable**: row ``i`` of the float buffer is id
     ``i`` forever (upserts append, deletes tombstone, rebuilds keep dead
-    rows in place).
+    rows in place). A sharded corpus is padded with tombstoned zero rows so
+    every epoch splits evenly across ``shard_align`` (default ``shards``)
+    shards; ``quantized`` in {"int8", "pq"} stores its shards compressed.
     """
 
     def __init__(self, vectors=None, metric: str = "l2", *,
                  graph: FlatGraph | None = None,
                  delta_capacity: int = 256, M: int = 16,
                  builder: str = "knng", shards: int | None = None,
-                 quantized: str | None = None,
-                 background: bool = True, device=None):
+                 shard_align: int | None = None,
+                 quantized: str | None = None, scale_rows: int = 8,
+                 background: bool = True, seed: int = 0, device=None):
         if builder not in ("knng", "hnsw"):
             raise ValueError(f"unknown builder {builder!r}")
         refuse_unported(shards=shards, quantized=quantized, builder=builder)
@@ -122,6 +130,9 @@ class MutableIndex:
         if graph is not None:
             if vectors is not None:
                 raise ValueError("pass either vectors or graph=, not both")
+            if shards:
+                raise ValueError("a sharded index is built from vectors — "
+                                 "pass vectors=, not a single-host graph")
             if not (isinstance(graph.vectors, torch.Tensor)
                     and graph.vectors.is_floating_point()):
                 raise ValueError(
@@ -139,7 +150,24 @@ class MutableIndex:
         self.d = int(base.shape[1])
         self.delta_capacity = int(delta_capacity)
         self.M = int(M)
+        self.builder = builder
+        self.shards = int(shards) if shards else None
+        #: elastic alignment: epochs pad to divisibility by the LARGEST
+        #: shard count the serving layer may rescale to, so every prepared
+        #: target splits the same rows evenly (defaults to ``shards``)
+        self.shard_align = int(shard_align) if shard_align else None
+        if self.shard_align is not None:
+            if not self.shards:
+                raise ValueError("shard_align only applies to sharded "
+                                 "corpora (pass shards=)")
+            if self.shard_align % self.shards:
+                raise ValueError(
+                    f"shard_align={self.shard_align} must be a multiple of "
+                    f"shards={self.shards}")
+        self.quantized = quantized
+        self.scale_rows = int(scale_rows)
         self.background = bool(background)
+        self.seed = int(seed)
         # append-only storage (amortized-doubling buffer); row index == id
         n = int(base.shape[0])
         cap = max(64, 1 << int(np.ceil(np.log2(max(n + delta_capacity, 1)))))
@@ -156,14 +184,23 @@ class MutableIndex:
         #: across swaps); while False, harvests take the bit-exact fast path
         self.mutated = False
         self.num_deleted = 0
-        #: first id NOT covered by the current epoch's graph — rows at
+        if self.shards is not None:
+            self._pad_for_shards()
+        #: first id NOT covered by the current epoch's structure — rows at
         #: ``[delta_start, n)`` are the delta segment
         self.delta_start = self._n
-        self._pending: tuple[int, FlatGraph] | None = None
+        self._pending: tuple[int, object] | None = None
         self._thread: threading.Thread | None = None
+        self._failure: Exception | None = None
         self._lock = threading.Lock()
-        self.graph = (to_device(graph, self.device) if graph is not None
-                      else self._build(base))
+        self._delta_codes: tuple[int, object] | None = None
+        if self.shards is not None:
+            self.graph = None
+            self.sharded = self._build(self._vecs[:self._n].copy())
+        else:
+            self.sharded = None
+            self.graph = (to_device(graph, self.device) if graph is not None
+                          else self._build(base))
 
     # -- views ---------------------------------------------------------------
     @property
@@ -240,6 +277,7 @@ class MutableIndex:
         self._n += m
         self.version += 1
         self.mutated = True
+        self._delta_codes = None
         if self.delta_count >= self.delta_capacity:
             self.request_rebuild()
         return ids
@@ -257,6 +295,7 @@ class MutableIndex:
         self.num_deleted += newly
         self.version += 1
         self.mutated = True
+        self._delta_codes = None
         return newly
 
     # -- scoring (kernels/ops ladder) -----------------------------------------
@@ -270,11 +309,31 @@ class MutableIndex:
         return kops.batch_similarity(q32.to(self.device), rows, self.metric,
                                      impl=impl).cpu().numpy()
 
+    def _delta_int8(self, ids: np.ndarray):
+        """Int8 codes of the live delta rows on the device (rebuilt lazily
+        after each write)."""
+        if self._delta_codes is not None \
+                and self._delta_codes[0] == self.version:
+            return self._delta_codes[1]
+        corp = quant.quantize_corpus(self._vecs[ids], "int8",
+                                     scale_rows=self.scale_rows,
+                                     device=self.device)
+        self._delta_codes = (self.version, corp)
+        return corp
+
     def score_delta(self, q, *, impl: str | None = None):
         """Flat-score the live delta segment: ``(ids, float_scores)``, one
         batched launch through the ``kernels.ops`` ladder; the fixed
-        capacity keeps "all rows" cheap by construction."""
+        capacity keeps "all rows" cheap by construction. An int8 corpus
+        also scores the delta's int8 codes (``quantized_similarity_many``,
+        the pass a capped prefilter would rank by), but the scores returned
+        are always the exact float ones (contract 13)."""
         ids = self.delta_ids()
+        if ids.size and self.quantized == "int8":
+            q32 = torch.from_numpy(np.asarray(q, np.float32).reshape(1, -1))
+            kops.quantized_similarity_many(q32.to(self.device),
+                                           self._delta_int8(ids),
+                                           self.metric, impl=impl)
         return ids, self._score_rows(q, ids, impl)
 
     # -- harvest-time merge + audit ------------------------------------------
@@ -392,10 +451,25 @@ class MutableIndex:
         return res, (m_ids, m_sc, slack if certified else None), meta
 
     # -- rebuild + epoch swap ------------------------------------------------
-    def _build(self, snap: np.ndarray) -> FlatGraph:
-        """Build the epoch graph over a row snapshot on the index's device
-        (thread-safe: a pure function of ``snap``; tombstoned rows stay in
-        place so ids remain positional)."""
+    def _pad_for_shards(self) -> None:
+        pad = (-self._n) % (self.shard_align or self.shards)
+        if pad:
+            self._grow(pad)
+            self._del[self._n:self._n + pad] = True  # permanent tombstones
+            self.num_deleted += pad
+            self._n += pad
+
+    def _build(self, snap: np.ndarray):
+        """Build the epoch structure over a row snapshot on the index's
+        device (thread-safe: a pure function of ``snap``; tombstoned rows
+        stay in place so ids remain positional)."""
+        if self.shards is not None:
+            from repro_torch.sharded_search.search import build_sharded_index
+            return build_sharded_index(
+                snap, self.shards, self.metric, M=self.M,
+                builder=self.builder, quantized=self.quantized,
+                scale_rows=self.scale_rows, seed=self.seed,
+                device=self.device)
         from repro_torch.index.flat import build_knn_graph
         return build_knn_graph(snap, self.metric, M=self.M,
                                device=self.device)
@@ -405,19 +479,28 @@ class MutableIndex:
         started (False: one is already running or awaiting its swap).
 
         ``background=True`` builds on a thread, so serving keeps pumping;
-        the built graph is *installed* only by ``install_swap`` — the
-        serving layer's between-rounds barrier — never here.
+        the built structure is *installed* only by ``install_swap`` — the
+        serving layer's between-rounds barrier — never here. A build that
+        raises on the thread is raised again by the next ``swap_ready`` or
+        ``wait_rebuild``.
         """
         with self._lock:
             if self._pending is not None:
                 return False
             if self._thread is not None and self._thread.is_alive():
                 return False
+        if self.shards is not None:
+            self._pad_for_shards()
         n_snap = self._n
         snap = self._vecs[:n_snap].copy()
 
         def work():
-            art = self._build(snap)
+            try:
+                art = self._build(snap)
+            except Exception as e:   # raised again on the serving side
+                with self._lock:
+                    self._failure = e
+                return
             with self._lock:
                 self._pending = (n_snap, art)
 
@@ -428,17 +511,26 @@ class MutableIndex:
             work()
         return True
 
+    def _raise_failure(self) -> None:
+        """Raise, once, the exception a background build ended with."""
+        with self._lock:
+            failure, self._failure = self._failure, None
+        if failure is not None:
+            raise RuntimeError("the background rebuild failed") from failure
+
     def wait_rebuild(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._raise_failure()
 
     def swap_ready(self) -> bool:
+        self._raise_failure()
         with self._lock:
             return self._pending is not None
 
-    def install_swap(self) -> FlatGraph:
-        """Adopt the pending graph as the new epoch; returns it.
+    def install_swap(self):
+        """Adopt the pending structure as the new epoch; returns it.
 
         Callers (``MutableBackend.maybe_swap``) must hold the engine idle —
         this only flips the index's own pointers.
@@ -448,11 +540,15 @@ class MutableIndex:
                 raise RuntimeError("no rebuilt structure pending")
             n_snap, art = self._pending
             self._pending = None
-        self.graph = art
+        if self.shards is not None:
+            self.sharded = art
+        else:
+            self.graph = art
         self.delta_start = n_snap
         self.epoch += 1
         self.version += 1
         self.rebuilds += 1
+        self._delta_codes = None
         return art
 
 
@@ -465,11 +561,20 @@ class MutableBackend:
     filter + delta merge + Theorem-2 re-audit), publishing the *merged*
     frontier in its own ``last_candidates`` so cache admission sees
     live-valid certificates. ``free_lanes`` is the epoch-swap barrier: while
-    a rebuilt graph is pending it admits nothing, lets in-flight lanes
+    a rebuilt structure is pending it admits nothing, lets in-flight lanes
     drain, and installs the swap on the idle engine between rounds
-    (contract 15). It has no rescale members, so it is never a
-    ``RescalableBackend``.
+    (contract 15).
+
+    Constructed over a ``RescalableBackend`` (a ``ShardedEngine``) it is a
+    ``RescalableMutableBackend``, which defines the rescale members too;
+    over any other engine it has none. So it is a ``RescalableBackend``
+    exactly when its engine is one.
     """
+
+    def __new__(cls, inner, index: MutableIndex):
+        if cls is MutableBackend and isinstance(inner, RescalableBackend):
+            cls = RescalableMutableBackend
+        return super().__new__(cls)
 
     def __init__(self, inner, index: MutableIndex):
         self.inner = inner
@@ -480,6 +585,8 @@ class MutableBackend:
         #: last finalized harvest (audits key corpus state by it)
         self.last_meta: list = [None] * int(inner.num_lanes)
         self.swaps = 0
+        #: swaps whose rebuilt epoch was resharded onto the serving count
+        self.reshards = 0
         self._reqs: dict[int, object] = {}
 
     # -- protocol delegation -------------------------------------------------
@@ -536,7 +643,27 @@ class MutableBackend:
             return False
         if self.inner.active_count():
             return False
-        self.inner.swap_graph(self.mutable_index.install_swap())
+        index = self.mutable_index
+        art = index.install_swap()
+        if index.shards is None:
+            self.inner.swap_graph(art)
+            self.swaps += 1
+            return True
+        # the engine's rerank corpus is the epoch snapshot: the rows the new
+        # index covers, not delta rows appended since
+        n_epoch = art.num_shards * art.shard_size
+        if art.num_shards != self.inner.num_shards:
+            # a rescale landed while the background rebuild ran: the rebuilt
+            # epoch targets the old shard count — repartition it onto the
+            # serving one (same rows, exact re-blocking)
+            from repro_torch.sharded_search.search import reshard_index
+            art = reshard_index(art, int(self.inner.num_shards),
+                                index.float_view()[:n_epoch], M=index.M,
+                                builder=index.builder)
+            index.sharded = art
+            index.shards = int(self.inner.num_shards)
+            self.reshards += 1
+        self.inner.swap_index(art, index.float_view()[:n_epoch])
         self.swaps += 1
         return True
 
@@ -564,3 +691,33 @@ class MutableBackend:
     def recycle(self, lane: int) -> None:
         self._reqs.pop(int(lane), None)
         self.inner.recycle(lane)
+
+
+class RescalableMutableBackend(MutableBackend):
+    """A ``MutableBackend`` over a ``RescalableBackend``: the rescale
+    members are delegated to the engine, spelled out so that Python 3.12's
+    static protocol check sees them. A rescale also moves the mutable
+    index's epoch to the new shard count (later rebuilds target it) and
+    resizes the merged-frontier slots to the engine's lane count."""
+
+    @property
+    def num_shards(self) -> int:
+        return self.inner.num_shards
+
+    def prepare_rescale(self, shards: int, mesh, index=None, **kw):
+        return self.inner.prepare_rescale(shards, mesh, index, **kw)
+
+    def rescale_options(self) -> tuple[int, ...]:
+        return self.inner.rescale_options()
+
+    def rescale(self, shards: int) -> bool:
+        if not self.inner.rescale(shards):
+            return False
+        if self.mutable_index.shards is not None:
+            self.mutable_index.shards = int(shards)
+            self.mutable_index.sharded = self.inner.index
+        B = int(self.inner.num_lanes)
+        for slots in (self.last_candidates, self.last_meta):
+            del slots[B:]
+            slots.extend([None] * (B - len(slots)))
+        return True

@@ -25,9 +25,15 @@ Resumption (``resume=``), as in the reference:
 
 ``result()`` reports each lane's real counters: cumulative shard-local
 expansions (a scratch round re-counts the work it redoes), budget doublings
-and rounds. The elastic half of the reference engine (``swap_index``,
-``prepare_rescale``, ``rescale_options``, ``rescale``) comes with a later
-slice.
+and rounds.
+
+The index can change under the engine two ways. ``swap_index`` installs a
+new epoch's corpus (the mutable index's rebuild) on an idle engine.
+``prepare_rescale`` reshards the corpus onto another shard count ahead of
+load and runs the target's dispatch ladder once; ``rescale`` then moves the
+corpus and every in-flight lane to it between rounds (contract 16): each
+lane's queues are re-bucketed by global id on the device, so it resumes its
+ladder without redoing expansions, and the lane count may follow the mesh.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ from repro_torch.core.progressive import SearchStats
 from repro_torch.sharded_search.search import (ShardedIndex,
                                                beam_state_capacity,
                                                init_sharded_state,
+                                               migrate_sharded_state,
+                                               reshard_index,
                                                sharded_diverse_resume,
                                                sharded_diverse_search)
 
@@ -51,8 +59,10 @@ LANE_FREE, LANE_RUN, LANE_DONE = range(3)
 class ShardedEngine:
     """Per-lane progressive budgets over a sharded index.
 
-    Drive it with ``admit`` / ``step`` / ``harvest`` / ``recycle`` (as
-    ``sharded_progressive_diverse`` does). ``record_candidates`` keeps each
+    Implements ``core.backend.RescalableBackend``: drive it with ``admit``
+    / ``step`` / ``harvest`` / ``recycle`` (as
+    ``sharded_progressive_diverse`` does) or through
+    ``serve.scheduler.LaneScheduler``. ``record_candidates`` keeps each
     lane's last merged candidate frontier on the host
     (``last_candidates``) so certificates can be re-checked independently.
     The float corpus ``all_vectors`` is kept on the index's device; for a
@@ -65,17 +75,12 @@ class ShardedEngine:
                  num_lanes: int = 8, *, axis: str = "data",
                  K0: int = 32, L_factor: int = 4, merge: str = "tournament",
                  max_expansions: int = 100_000, max_rounds: int = 8,
-                 max_k: int = 16, resume: str = "beam",
+                 max_k: int = 16, default_ef: int = 0, resume: str = "beam",
                  state_capacity: int | None = None,
                  record_candidates: bool = False):
         if resume not in ("beam", "scratch"):
             raise ValueError(f"unknown resume mode {resume!r}")
-        self.index = index
-        self.compressed = index.scheme is not None
-        xs = torch.as_tensor(all_vectors)
-        self.all_vectors = (xs.cpu().numpy().astype(np.float32, copy=False)
-                            if self.compressed else
-                            xs.to(index.device, torch.float32).contiguous())
+        self._set_corpus(index, all_vectors)
         self.mesh = mesh
         self.axis = axis
         self.K0 = K0
@@ -84,10 +89,13 @@ class ShardedEngine:
         self.max_expansions = max_expansions
         self.max_rounds = max_rounds
         self.max_k = max_k
+        # the mesh backend has no beam-ef knob (beam width = K * L_factor);
+        # kept so the scheduler's ef plumbing is backend-neutral
+        self.default_ef = default_ef
         self.resume = resume
         self.record_candidates = record_candidates
+        self._state_capacity = state_capacity
         self.B = int(num_lanes)
-        self.n_total = index.num_shards * index.shard_size
         d = int(index.dim)
         self.qs = np.zeros((self.B, d), np.float32)
         self.status = np.full(self.B, LANE_FREE, np.int8)
@@ -104,24 +112,41 @@ class ShardedEngine:
         #: per-lane (cand_ids, cand_scores) of the last dispatched round,
         #: kept when ``record_candidates``
         self.last_candidates: list = [None] * self.B
-        if resume == "beam":
-            floor = beam_state_capacity(index, self.n_total, L_factor)
-            cap = state_capacity or floor
-            if cap < floor:
-                # a narrower queue drops beam candidates: harvest pads with
-                # -inf rows, which passes the certificate's min_value > s_K
-                # trivially and voids both contracts — refuse here
-                raise ValueError(
-                    f"state_capacity={cap} is below the resumable-beam "
-                    f"floor {floor} (beam_state_capacity); the widening "
-                    "contract needs the queue to hold every rung's beam "
-                    "or the whole shard")
-            self.beam_state = init_sharded_state(index, self.B, cap, mesh,
-                                                 axis)
-        else:
-            self.beam_state = None
+        self.beam_state = (init_sharded_state(
+            index, self.B, self._target_capacity(index), mesh, axis)
+            if resume == "beam" else None)
         self.signatures = SignatureLog()
         self._unharvested: list[int] = []
+        #: prepared elastic targets: shard count -> (mesh, index, lanes),
+        #: resharded and run once ahead of the scale event
+        self._rescale_targets: dict[int, tuple] = {}
+
+    def _set_corpus(self, index: ShardedIndex, all_vectors) -> None:
+        self.index = index
+        self.compressed = index.scheme is not None
+        xs = torch.as_tensor(all_vectors)
+        self.all_vectors = (xs.cpu().numpy().astype(np.float32, copy=False)
+                            if self.compressed else
+                            xs.to(index.device, torch.float32).contiguous())
+        self.n_total = index.num_shards * index.shard_size
+
+    def _target_capacity(self, index: ShardedIndex) -> int:
+        """The resumable queue's width over ``index``: ``state_capacity``,
+        or the floor ``beam_state_capacity`` when unset."""
+        floor = beam_state_capacity(index, self.n_total, self.L_factor)
+        cap = self._state_capacity or floor
+        if cap < floor:
+            # a narrower queue drops beam candidates: harvest pads with
+            # -inf rows, which passes the certificate's min_value > s_K
+            # trivially and voids both contracts. Shrinking the mesh grows
+            # the shards and can raise the floor past a pinned capacity:
+            # refused when the target is prepared, not mid-migration
+            raise ValueError(
+                f"state_capacity={cap} is below the resumable-beam floor "
+                f"{floor} of {index.num_shards} shards (beam_state_capacity); "
+                "the widening contract needs the queue to hold every rung's "
+                "beam or the whole shard")
+        return cap
 
     # -- protocol surface ---------------------------------------------------
     @property
@@ -265,15 +290,185 @@ class ShardedEngine:
         return DiverseResult(ids.astype(np.int32), sc.astype(np.float32),
                              float(sc.sum()), stats)
 
+    # -- epoch swap ----------------------------------------------------------
+    def swap_index(self, index: ShardedIndex, all_vectors) -> None:
+        """Install a new epoch's sharded index (the mutable index's rebuild
+        swap). Only legal with no lane running: the carried state is laid
+        out per shard of the old corpus, so it starts afresh over the new
+        one (the serving layer drains in-flight lanes first, contract 15;
+        finished, unrecycled lanes keep their host results). The shard
+        count stays (the rebuild pads the corpus to divisibility instead);
+        the signature log carries across epochs. Prepared elastic targets
+        hold the old epoch's rows, so they are dropped: the caller prepares
+        them again over the new epoch."""
+        if self.active_count():
+            raise RuntimeError("cannot swap the index under occupied lanes "
+                               "— drain in-flight lanes first (contract 15)")
+        if index.num_shards != self.index.num_shards:
+            raise ValueError(
+                f"epoch swap cannot change the shard count "
+                f"({self.index.num_shards} -> {index.num_shards}); pad the "
+                "corpus to divisibility instead")
+        self._set_corpus(index, all_vectors)
+        self.maxK = np.minimum(self.maxK, self.n_total)
+        if self.resume == "beam":
+            self.beam_state = init_sharded_state(
+                index, self.B, self._target_capacity(index), self.mesh,
+                self.axis)
+            self.fresh[:] = True
+        self._rescale_targets.clear()
+        self.signatures.note("swap", self.B, self.n_total)
+
+    # -- elastic rescale -----------------------------------------------------
+    def prepare_rescale(self, shards: int, mesh, index: ShardedIndex | None
+                        = None, *, M: int | None = None,
+                        builder: str = "knng", prewarm: bool = True,
+                        max_capacity: int | None = None, ks: tuple = (),
+                        num_lanes: int | None = None) -> ShardedIndex:
+        """Build (or adopt) and run once an elastic target of ``shards``.
+
+        Resharding (``reshard_index``: rows re-blocked, graphs rebuilt) and
+        the first pass over the target's dispatch ladder — its group sizes
+        up to its lane count crossed with the budgets from ``K0`` up to
+        ``max_capacity``, on a throwaway state at the target's queue width —
+        happen here, ahead of load, so the scale event itself is only the
+        state migration. The ladder's signatures, and ``("rescale", s)``
+        for the target and for the current count (the way back), are noted,
+        so preparing every target before ``signature_log.freeze()`` keeps
+        scale events off the unplanned list.
+
+        ``num_lanes`` gives the target its own lane count (default the
+        current one): serving capacity follows the mesh. A lane shrink
+        applies at ``rescale`` only when the tail lanes are free then.
+        """
+        if shards & (shards - 1) or shards < 1:
+            raise ValueError(f"shards={shards} must be a power of two")
+        B_t = int(num_lanes or self.B)
+        if B_t < 1:
+            raise ValueError(f"num_lanes={B_t} must be >= 1")
+        if index is None:
+            index = reshard_index(
+                self.index, shards,
+                self.all_vectors if self.compressed else None,
+                M=M, builder=builder)
+        if index.num_shards != shards:
+            raise ValueError(f"prepared index has {index.num_shards} "
+                             f"shards, expected {shards}")
+        if index.num_shards * index.shard_size != self.n_total:
+            raise ValueError("elastic targets must cover the same corpus "
+                             "(resharding is a capacity knob)")
+        self.signatures.note("rescale", shards)
+        self.signatures.note("rescale", self.index.num_shards)
+        if prewarm and shards != self.index.num_shards:
+            state = (init_sharded_state(index, B_t,
+                                        self._target_capacity(index), mesh,
+                                        self.axis)
+                     if self.resume == "beam" else None)
+            self._run_ladder(index, mesh, state, B_t, max_capacity, ks)
+        self._rescale_targets[shards] = (mesh, index, B_t)
+        return index
+
+    def _run_ladder(self, index, mesh, state, B: int, max_capacity, ks):
+        """One dispatch of each (group, K, k) rung on zero queries over a
+        throwaway state, a group of g on lanes 0..g-1; the results are
+        dropped."""
+        d = int(index.dim)
+        top = min(max_capacity or self.K0, self.n_total)
+        for g in pow2_group_sizes(B):
+            lanes = np.arange(min(g, B))
+            qs = np.zeros((len(lanes), d), np.float32)
+            epss = np.zeros(len(lanes), np.float32)
+            for k in tuple(int(kk) for kk in ks) or (self.max_k,):
+                K = min(max(self.K0, 2 * k), self.n_total)
+                while True:
+                    self.signatures.note("sharded", g, K, k)
+                    if self.resume == "beam":
+                        sharded_diverse_resume(
+                            index, self.all_vectors, state, qs, lanes,
+                            np.ones(len(lanes), bool), k, epss, K, mesh,
+                            self.axis, self.L_factor, self.merge,
+                            "div_astar", self.max_expansions)
+                    else:
+                        sharded_diverse_search(
+                            index, self.all_vectors, qs, k, epss, K, mesh,
+                            self.axis, self.L_factor, self.merge,
+                            "div_astar", self.max_expansions)
+                    if K >= top:
+                        break
+                    K = min(K * 2, self.n_total)
+
+    def rescale_options(self) -> tuple[int, ...]:
+        """Shard counts this engine can serve at right now: the current
+        one plus every prepared target."""
+        return tuple(sorted(set(self._rescale_targets)
+                            | {self.index.num_shards}))
+
+    def rescale(self, shards: int) -> bool:
+        """Move the corpus and every in-flight lane to the prepared
+        ``shards`` target, between rounds, without draining.
+
+        The carried state migrates (``migrate_sharded_state``: queues
+        re-bucketed by global id, visited rows and per-lane step totals
+        kept), so occupied lanes resume their budget ladder on the new
+        topology (contract 16). A target prepared with its own lane count
+        appends free lanes, or drops the tail lanes when they are all free
+        now (an occupied lane is never dropped: the width stays until the
+        tail drains). The outgoing configuration becomes a target, so
+        scaling back is one ``rescale`` away. Returns False when already at
+        ``shards``; raises if the target was never prepared."""
+        if shards == self.index.num_shards:
+            return False
+        target = self._rescale_targets.get(shards)
+        if target is None:
+            raise RuntimeError(
+                f"no prepared target for {shards} shards — call "
+                "prepare_rescale first (resharding is the expensive half; "
+                "the scale event itself must not pay it)")
+        mesh, index, B_new = target
+        self._rescale_targets[self.index.num_shards] = (self.mesh,
+                                                        self.index, self.B)
+        if B_new < self.B and (self.status[B_new:] != LANE_FREE).any():
+            B_new = self.B   # occupied tail: keep width, move shards only
+        if self.resume == "beam":
+            self.beam_state = migrate_sharded_state(
+                self.beam_state, shards, self._target_capacity(index),
+                mesh=mesh, axis=self.axis, num_lanes=B_new)
+        if B_new != self.B:
+            self._resize_lanes(B_new)
+        self.index = index
+        self.mesh = mesh
+        self.signatures.note("rescale", shards)
+        return True
+
+    def _resize_lanes(self, B_new: int) -> None:
+        """Pad (grow) or cut (shrink) every per-lane host array to
+        ``B_new`` lanes, keeping the surviving prefix; the caller drops
+        free tail lanes only."""
+        B = self.B
+        fills = dict(qs=0, status=LANE_FREE, ks=1, epss=0, K=0,
+                     maxK=self.n_total, rounds=0, out_ids=-1, out_sc=0,
+                     cert=False, expansions=0, fresh=True)
+        for name, fill in fills.items():
+            a = getattr(self, name)
+            out = np.full((B_new,) + a.shape[1:], fill, a.dtype)
+            out[:min(B, B_new)] = a[:B_new]
+            setattr(self, name, out)
+        self.last_candidates = (self.last_candidates[:B_new]
+                                + [None] * (B_new - B))
+        self.B = B_new
+
     # -- prewarm ------------------------------------------------------------
-    def prewarm(self, *, max_capacity: int | None = None,
-                ks: tuple = ()) -> list[tuple]:
+    def prewarm(self, *, max_capacity: int | None = None, ks: tuple = (),
+                widths: tuple = ()) -> list[tuple]:
         """Run the dispatch ladder once ahead of serving: the power-of-two
         group sizes up to ``num_lanes`` crossed with the budgets from
         ``K0`` up to ``max_capacity`` (default ``K0`` alone) for each ``k``
         in ``ks`` (default ``max_k``), a group of g on lanes 0..g-1.
         Nothing is compiled here; the pass builds the kernels on first use
-        and records the signatures."""
+        and records the signatures. ``widths`` is accepted for the
+        single-host engine's signature and ignored (no prefix-width
+        stage)."""
+        del widths
         if (self.status != LANE_FREE).any():
             raise RuntimeError("prewarm before admitting requests (prewarm "
                                "dispatches scribble on the lanes' result rows)")

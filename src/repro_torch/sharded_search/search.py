@@ -24,8 +24,10 @@ fixed budget, no state); ``ShardedSearchState`` with
 ``sharded_topk_resume`` / ``sharded_diverse_resume`` carry each lane's
 per-shard beams across the budget ladder. The reference's compiled-dispatch
 cache (``_resume_dispatch_fn``, ``resume_jit_cache_sizes``) has no
-counterpart: nothing is compiled. Elastic resharding (``reshard_index``,
-``migrate_sharded_state``) comes with a later slice.
+counterpart: nothing is compiled. Elastic resharding repartitions the
+index (``reshard_index``: rows re-blocked, shard graphs rebuilt) and moves
+the in-flight state (``migrate_sharded_state``: every lane's queues
+re-bucketed by global id, on the device).
 """
 from __future__ import annotations
 
@@ -156,6 +158,15 @@ def _corpus_parts(index: ShardedIndex):
                           index.codebooks), ns
 
 
+def _check_builder(builder: str) -> None:
+    if builder == "hnsw":
+        raise NotImplementedError(
+            "builder='hnsw' needs repro_torch.index.hnsw, which a later slice "
+            "ports (ROADMAP queue 1 F); use builder='knng'")
+    if builder != "knng":
+        raise ValueError(f"unknown builder {builder!r}")
+
+
 def build_sharded_index(vectors, num_shards: int, metric: str, M: int = 16,
                         builder: str = "knng", quantized: str | None = None,
                         scale_rows: int = 8, pq_m: int | None = None,
@@ -172,12 +183,7 @@ def build_sharded_index(vectors, num_shards: int, metric: str, M: int = 16,
     builder can differ from the reference's on exactly tied KNN candidates;
     ``index_from_host`` carries the reference's shards across instead.
     """
-    if builder == "hnsw":
-        raise NotImplementedError(
-            "builder='hnsw' needs repro_torch.index.hnsw, which a later slice "
-            "ports; use builder='knng'")
-    if builder != "knng":
-        raise ValueError(f"unknown builder {builder!r}")
+    _check_builder(builder)
     if quantized is not None and quantized not in quant.QUANT_SCHEMES:
         raise ValueError(f"unknown quantized scheme {quantized!r}; "
                          f"expected one of {quant.QUANT_SCHEMES} or None")
@@ -219,6 +225,78 @@ def build_sharded_index(vectors, num_shards: int, metric: str, M: int = 16,
                 else None),
         codebooks=pq_global.codebooks if quantized == "pq" else None,
         metric=metric, scheme=quantized, scale_rows=int(scale_rows))
+
+
+def reshard_index(index: ShardedIndex, num_shards: int, all_vectors=None, *,
+                  M: int | None = None,
+                  builder: str = "knng") -> ShardedIndex:
+    """Repartition a ``ShardedIndex`` across a new power-of-two shard count,
+    on the index's device.
+
+    Shard ``s`` owns global rows ``[s * ns, (s + 1) * ns)``, so this is a
+    re-blocking of the stacked rows: global ids never move, int8 codes and
+    scales are re-blocked exactly (``scale_rows`` must divide both shard
+    sizes) and PQ codebooks are shared. Each new shard's graph is rebuilt
+    from its float rows with ``index.flat.build_knn_graph``, so a round trip
+    (4 -> 8 -> 4 with the same ``M``) gives back the original index bit for
+    bit.
+
+    ``all_vectors`` is the float corpus the caller keeps for a quantized
+    index (whose ``vectors`` is None). ``M`` defaults to half the stored
+    neighbour width (the builder's ``M0 = 2 * M``).
+    """
+    p_old, ns_old = index.num_shards, index.shard_size
+    n = p_old * ns_old
+    if num_shards & (num_shards - 1) or num_shards < 1:
+        raise ValueError(f"num_shards={num_shards} must be a power of two "
+                         "(tournament merge)")
+    if n % num_shards:
+        raise ValueError(f"corpus of {n} rows does not split across "
+                         f"{num_shards} shards")
+    if num_shards == p_old:
+        return index
+    ns_new = n // num_shards
+    if index.scheme == "int8" and (ns_old % index.scale_rows
+                                   or ns_new % index.scale_rows):
+        raise ValueError(
+            f"int8 scale blocks ({index.scale_rows} rows) must divide both "
+            f"shard sizes ({ns_old} -> {ns_new}); rebuild instead of "
+            "resharding")
+    if index.vectors is not None:
+        flat = index.vectors.reshape(n, -1).cpu().numpy()
+    elif all_vectors is not None:
+        flat = torch.as_tensor(all_vectors)[:n].cpu().numpy()
+    else:
+        raise ValueError("resharding a quantized index needs the float "
+                         "corpus (all_vectors=)")
+    _check_builder(builder)
+    if M is None:
+        M = index.neighbors.shape[-1] // 2
+    dev = index.device
+    vecs, nbrs, entries = [], [], []
+    for s in range(num_shards):
+        g = build_knn_graph(flat[s * ns_new:(s + 1) * ns_new],
+                            metric=index.metric, M=M, device=dev)
+        vecs.append(g.vectors)
+        nbrs.append(g.neighbors)
+        entries.append(int(g.entry))
+    m0 = max(a.shape[1] for a in nbrs)
+    nbrs = [torch.nn.functional.pad(a, (0, m0 - a.shape[1]), value=-1)
+            for a in nbrs]
+    codes = scales = None
+    if index.codes is not None:
+        rest = index.codes.shape[2:]
+        codes = index.codes.reshape(num_shards, ns_new, *rest).contiguous()
+    if index.scales is not None:
+        scales = index.scales.reshape(num_shards, -1).contiguous()
+    return ShardedIndex(
+        vectors=None if index.scheme else torch.stack(vecs),
+        neighbors=torch.stack(nbrs).contiguous(),
+        entries=torch.tensor(entries, dtype=torch.int32, device=dev),
+        bases=torch.arange(num_shards, dtype=torch.int32, device=dev) * ns_new,
+        codes=codes, scales=scales, codebooks=index.codebooks,
+        metric=index.metric, scheme=index.scheme,
+        scale_rows=index.scale_rows)
 
 
 # ------------------------------------------------------ shard-local beams ----
@@ -381,7 +459,12 @@ def init_sharded_state(index: ShardedIndex, num_lanes: int, capacity: int,
     """Empty (all lanes unseeded) state on the index's device."""
     if mesh is not None:
         _check_mesh(index, mesh, axis)
-    p, ns, dev = index.num_shards, index.shard_size, index.device
+    return _empty_state(index.num_shards, index.shard_size, num_lanes,
+                        capacity, index.device)
+
+
+def _empty_state(p: int, ns: int, num_lanes: int, capacity: int,
+                 dev) -> ShardedSearchState:
     q = qmod.make_queue(capacity, (p, num_lanes), dev)
     return ShardedSearchState(
         q.ids, q.scores, q.stable,
@@ -397,6 +480,100 @@ def state_from_host(host: dict, device=None) -> ShardedSearchState:
     return ShardedSearchState(*(
         torch.as_tensor(np.array(host[f])).to(dev, dt).contiguous()
         for f, dt in zip(ShardedSearchState._fields, dtypes)))
+
+
+def migrate_sharded_state(state: ShardedSearchState, num_shards: int,
+                          capacity: int | None = None, mesh=None,
+                          axis: str = "data",
+                          num_lanes: int | None = None) -> ShardedSearchState:
+    """Re-bucket in-flight per-lane beam state onto a new shard layout, on
+    the state's device.
+
+    A queue entry's global id is ``local + s * ns``. Each entry goes to the
+    new shard that owns its global id; every (shard, lane) queue is re-sorted
+    (score desc, global id asc) — the reference's ``np.lexsort((g, -s))``,
+    here three stable sorts, one key each, from the last key to the first,
+    with -0.0 sorted as +0.0 as numpy compares them — and each entry lands
+    in a slot of its own, so no scatter writes one place twice. The visited
+    bits follow their global row. ``steps`` keep each lane's per-shard
+    totals: a split shard's count rides on its first child, merged shards
+    sum. A target queue narrower than a (shard, lane)'s entries raises
+    rather than drop candidates.
+
+    ``num_lanes`` resizes the lane axis: new lanes are empty (unseeded), a
+    smaller count keeps lanes ``[:num_lanes]`` and drops the rest.
+    """
+    ids, scores, stable, visited, steps = state
+    p_old, B, C_old = ids.shape
+    ns_old = visited.shape[-1]
+    n = p_old * ns_old
+    if num_shards < 1 or num_shards & (num_shards - 1) or n % num_shards:
+        raise ValueError(f"cannot migrate {p_old}x{ns_old} beam state to "
+                         f"{num_shards} shards")
+    if mesh is not None and (axis not in mesh.axis_names
+                             or mesh.size != num_shards):
+        raise ValueError(f"{num_shards} shards on a mesh of {mesh.size} "
+                         f"along {mesh.axis_names}, axis {axis!r}")
+    ns_new = n // num_shards
+    C_new = int(capacity or C_old)
+    dev = ids.device
+    E = p_old * C_old
+
+    # queue entries as global ids, each lane's entries in one row [B, E]
+    base = (torch.arange(p_old, device=dev, dtype=torch.int64)
+            * ns_old)[:, None, None]
+    gids = torch.where(ids >= 0, ids.to(torch.int64) + base, -1)
+    gids = gids.transpose(0, 1).reshape(B, E)
+    sc = scores.transpose(0, 1).reshape(B, E)
+    st = stable.transpose(0, 1).reshape(B, E)
+    live = gids >= 0
+    shard = torch.where(live, gids // ns_new, num_shards)  # empty: at the end
+    order = torch.sort(torch.where(live, gids, n), dim=1, stable=True).indices
+    by_score = torch.sort((sc + 0.0).gather(1, order), dim=1,
+                          descending=True, stable=True).indices
+    order = order.gather(1, by_score)
+    by_shard = torch.sort(shard.gather(1, order), dim=1, stable=True)
+    order = order.gather(1, by_shard.indices)
+    s_sorted = by_shard.values
+    bounds = torch.arange(num_shards + 1, device=dev).repeat(B, 1)
+    starts = torch.searchsorted(s_sorted, bounds)
+    counts = (starts[:, 1:] - starts[:, :-1]).T            # [P_new, B]
+    over = (counts > C_new).nonzero()
+    if over.numel():
+        s, b = (int(v) for v in over[0])
+        raise ValueError(
+            f"capacity {C_new} cannot hold the {int(counts[s, b])} migrated "
+            f"candidates of lane {b} shard {s}; size the target state with "
+            "beam_state_capacity")
+    pos = (torch.arange(E, device=dev).expand(B, -1)
+           - starts.gather(1, s_sorted.clamp(max=num_shards - 1)))
+    keep = s_sorted < num_shards
+    lane = torch.arange(B, device=dev)[:, None].expand(B, E)
+    slot = ((s_sorted * B + lane) * C_new + pos)[keep]
+    g = gids.gather(1, order)[keep]
+    new = qmod.make_queue(C_new, (num_shards, B), dev)
+    new.ids.view(-1)[slot] = (g - s_sorted[keep] * ns_new).to(torch.int32)
+    new.scores.view(-1)[slot] = sc.gather(1, order)[keep]
+    new.stable.view(-1)[slot] = st.gather(1, order)[keep]
+
+    new_vis = (visited.transpose(0, 1).reshape(B, num_shards, ns_new)
+               .transpose(0, 1).contiguous())
+    if num_shards >= p_old:
+        new_steps = torch.zeros((num_shards, B), dtype=torch.int32,
+                                device=dev)
+        new_steps[::num_shards // p_old] = steps
+    else:
+        new_steps = steps.reshape(num_shards, p_old // num_shards, B).sum(
+            dim=1, dtype=torch.int32)
+    leaves = [new.ids, new.scores, new.stable, new_vis, new_steps]
+    B_new = int(num_lanes or B)
+    if B_new != B:
+        empty = _empty_state(num_shards, ns_new, B_new, C_new, dev)
+        keep_b = min(B, B_new)
+        for out, leaf in zip(empty, leaves):
+            out[:, :keep_b] = leaf[:, :keep_b]
+        leaves = list(empty)
+    return ShardedSearchState(*leaves)
 
 
 def _resume_beams(index: ShardedIndex, state: ShardedSearchState, qs,

@@ -290,10 +290,11 @@ def test_delta_scores_bit_match_the_flat_scan(clustered_data):
     np.testing.assert_array_equal(d_sc2, want[keep])
 
 
-def test_mutable_backend_protocols(port_db):
+def test_mutable_backend_protocols(port_db, clustered_data):
     """The decorator defines every delegated member itself, so it is a
-    LaneBackend under Python 3.12's static protocol check — and, having no
-    rescale members, never a RescalableBackend."""
+    LaneBackend under Python 3.12's static protocol check — a
+    RescalableBackend over the sharded engine, and never one over the
+    single-host engine, which has no rescale members."""
     backend = port_db.backend
     assert isinstance(backend, MutableBackend)
     assert isinstance(backend, LaneBackend)
@@ -302,20 +303,24 @@ def test_mutable_backend_protocols(port_db):
     assert backend.record_candidates and backend.inner.record_candidates
     with pytest.raises(ValueError, match="rescalable"):
         LaneScheduler(backend=backend, prewarm=False, elastic=True)
+    sharded = _db(tdb, clustered_data, shards=2).backend
+    assert isinstance(sharded, MutableBackend)
+    assert isinstance(sharded, LaneBackend)
+    assert isinstance(sharded, RescalableBackend)
+    assert isinstance(sharded.inner, RescalableBackend)
+    assert sharded.num_shards == 2 and sharded.rescale_options() == (2,)
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(shards=2), "queue 1 C"), (dict(elastic=True), "queue 1 C"),
     (dict(quantized="int8"), "queue 1 H"), (dict(builder="hnsw"),
                                             "queue 1 F")])
 def test_unported_branches_raise(clustered_data, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tdb.DiverseVectorDB(clustered_data, "l2", prewarm=False,
                             device="cpu", **kw)
-    if "elastic" not in kw:
-        with pytest.raises(NotImplementedError, match=item):
-            MutableIndex(clustered_data, "l2", background=False,
-                         device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match=item):
+        MutableIndex(clustered_data, "l2", background=False,
+                     device="cpu", **kw)
 
 
 def test_write_admission_validates(port_db):
