@@ -144,6 +144,34 @@ Phases:
    seconds and the drain. Phase 8 must launch sim_many, sim_gather, the
    adjacency and topk_merge; launches of its checks are not counted.
 
+9. The paper's per-query API on phase 4's graph, eps and queries; it
+   builds nothing. (a) ``diverse_search(graph, q, k=10, eps, method=m,
+   ef=40)`` for m in pss, pgs, pds (PDS with ``max_K = PDS_MAX_K`` = 1024,
+   benchmarks/table2.py's) over the first ``Q9`` = 4 queries, PDS over the
+   first ``PDS_QUERIES`` = 1 (both cut from 8, listed under ``reduced``: at
+   8 phase 9 took 626 s), one at a time: each pss result must equal
+   phase 4's served one (ids, score bits, certificate, exhausted, K_final,
+   growths), each pgs result the lane of ``batch_pgs`` over the same
+   queries (ids, score bits, K), each pds result the lane of ``batch_pds``
+   (ids, score bits, certificate, exhausted, K_final). (b) The Greedy baseline (L = 400), IP-greedy
+   (lam = 0.7, L = 400) and ``div_astar_oracle`` (exact top-X on the card,
+   X = 1024 doubling until Theorem 2 certifies) on the same queries: per
+   method the synced wall per query (p50, mean), the mean total score,
+   recall against the oracle's ids (benchmarks/common.py's), K_final mean
+   and max, the certified share; PDS's N/A count; the oracle's final X.
+   (c) ``batch_greedy_diverse`` (L = 256) and ``batch_optimal_diverse``
+   (K = 128, ef = 4) over the first 16 queries (benchmarks/batch_bench.py's
+   values): each greedy lane must equal ``greedy_fixed`` at L = 256 (ids,
+   score bits); wall and certified share. Every result must be distinct
+   and valid, with k ids unless exhausted (N/A), and diverse but
+   IP-greedy's, which takes no eps (its pairs above eps are counted).
+   Phase 9 must launch sim_many, sim_gather, the adjacency and greedy; its
+   launches are logged by (lanes, width), and the single-lane adjacency
+   and greedy are held against their plain versions on tie-free prefixes
+   at the phase's most frequent single-lane width and its widest (the
+   oracle's X), and timed there beside their bounds (``path9_shapes`` in
+   their rows).
+
 After phase 6: how many launches of pairwise_adjacency, fused_round and
 greedy_diversify ran at each (lanes, width) in phases 4 and 6, read from the
 engines' ``SignatureLog.counts`` (lanes as the log rounds them, to a power
@@ -223,6 +251,21 @@ EL_STRADDLE_LANES, EL_STRADDLE_K0 = 16, 16
 EL_POLICY = dict(shrink_depth=0, sustain=2, shrink_sustain=3, cooldown=3)
 PATH8_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
                  "pairwise_adjacency", "topk_merge")
+# phase 9: the paper's per-query API on phase 4's graph, eps and first Q9
+# queries (PDS on the first PDS_QUERIES of them): PDS's max_K
+# (benchmarks/table2.py:42), the oracle's X (benchmarks/common.py:33), the
+# fixed beam of the Greedy and IP-greedy baselines, and the batch
+# baselines' queries and budgets (benchmarks/batch_bench.py:149,158). Both
+# counts are cuts (listed under ``reduced``): at 8 queries each phase 9 took
+# 626 s (tools/torch_per_query_path.py on an H100), 350 s of it PDS, which
+# at this eps stabilises up to max_K * ef = 40 960 candidates for a query
+# it then flags N/A (7 of 8), and ~200 s its batch_pds check
+Q9, PDS_QUERIES = 4, 1
+PDS_MAX_K, ORACLE_X, GREEDY_L, IPG_LAM = 1024, 1024, 400, 0.7
+BATCH_Q, BATCH_L, BATCH_K, BATCH_EF = 16, 256, 128, 4
+PER_QUERY_METHODS = ("pss", "pgs", "pds")
+PATH9_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
+                 "pairwise_adjacency", "greedy_diversify")
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
@@ -663,24 +706,31 @@ def serve(torch, engine, qs, request):
     return results, latency
 
 
+def pairs_above(torch, sim, x, ids, eps) -> int:
+    """Pairs of a batch of results ids [B, k] whose similarity is above eps
+    (the kernels' arithmetic, sim.cuh's order, which dot_seq reproduces)."""
+    rows = x[ids.clamp(min=0).long()]
+    pair = sim.query_sim(rows[:, :, None, :], rows[:, None, :, :], "l2")
+    valid = ids >= 0
+    off = ~torch.eye(ids.shape[1], dtype=torch.bool, device=ids.device)
+    return int(((pair > eps) & off & valid[:, :, None]
+                & valid[:, None, :]).sum()) // 2
+
+
 def assert_results(torch, sim, x, ids, scores, eps, what):
     """Result ids [B, K] in range, finite scores, no duplicate, and no two
-    returned ids G^eps neighbours (the kernels' arithmetic, sim.cuh's
-    order, which dot_seq reproduces)."""
+    returned ids G^eps neighbours (``pairs_above``)."""
     n = x.shape[0]
     k = ids.shape[1]
     if bool(((ids < -1) | (ids >= n)).any()):
         raise AssertionError(f"{what}: ids out of range")
     if not bool(torch.isfinite(scores).all()):
         raise AssertionError(f"{what}: non-finite scores")
+    bad = pairs_above(torch, sim, x, ids, eps)
+    if bad:
+        raise AssertionError(f"{what}: {bad} result pairs violate sim < eps")
     valid = ids >= 0
-    rows = x[ids.clamp(min=0).long()]
-    pair = sim.query_sim(rows[:, :, None, :], rows[:, None, :, :], "l2")
     off = ~torch.eye(k, dtype=torch.bool, device=ids.device)
-    bad = (pair > eps) & off & valid[:, :, None] & valid[:, None, :]
-    if bool(bad.any()):
-        raise AssertionError(f"{what}: {int(bad.sum())} result pairs "
-                             "violate sim < eps")
     dup = (ids[:, :, None] == ids[:, None, :]) & off & valid[:, :, None]
     if bool(dup.any()):
         raise AssertionError(f"{what}: duplicate ids in a result")
@@ -2193,6 +2243,312 @@ def elastic_path(torch, report, db6, x_np, qs_np, eps, served6, seed,
     return launches
 
 
+# ------------------------------------------------------------- phase 9 ----
+
+class ShapedLaunches(PathLaunches):
+    """``PathLaunches`` that also keeps each kernel's launches by (lanes,
+    width): the wrappers in ``kernels.ops``'s namespace are wrapped while it
+    is installed, each call noted under the shape its kernel launches at
+    (adjacency: ids [G, W]; greedy: scores [B, W]; sim_many: queries x rows;
+    sim_gather: ids [B, M]). ``bank()`` keeps the noted shapes, ``drop()``
+    forgets them; ``restore()`` puts the wrappers back."""
+
+    SHAPES = {"pairwise_adjacency": ("adjacency_cuda", lambda a: a[1].shape),
+              "greedy_diversify": ("greedy_cuda", lambda a: a[0].shape),
+              "batch_similarity_many": (
+                  "sim_many_cuda", lambda a: (a[0].shape[0], a[1].shape[0])),
+              "batch_similarity_gather": ("sim_gather_cuda",
+                                          lambda a: a[2].shape)}
+
+    def __init__(self, ops):
+        super().__init__(ops)
+        self.hist = {name: {} for name in self.SHAPES}
+        self._pending: list = []
+        self._orig = {}
+        for name, (attr, shape) in self.SHAPES.items():
+            fn = getattr(ops, attr)
+            self._orig[attr] = fn
+
+            def noted(*a, _fn=fn, _name=name, _shape=shape, **kw):
+                self._pending.append((_name, "%d x %d" % tuple(_shape(a))))
+                return _fn(*a, **kw)
+
+            setattr(ops, attr, noted)
+
+    def bank(self):
+        super().bank()
+        for name, key in self._pending:
+            self.hist[name][key] = self.hist[name].get(key, 0) + 1
+        self._pending.clear()
+
+    def drop(self):
+        super().drop()
+        self._pending.clear()
+
+    def restore(self):
+        for attr, fn in self._orig.items():
+            setattr(self.ops, attr, fn)
+
+
+def check_diverse(torch, sim, x, results, eps, what, diverse=True):
+    """Every result distinct and valid, and diverse unless ``diverse`` is
+    False (``assert_results``), with k ids unless it is exhausted (PDS:
+    N/A). Returns the pairs above eps."""
+    ids = torch.as_tensor(np.stack([r.ids for r in results]), device=x.device)
+    scores = torch.as_tensor(np.stack([r.scores for r in results]),
+                             device=x.device)
+    assert_results(torch, sim, x, ids, scores, eps if diverse else math.inf,
+                   what)
+    short = [i for i, r in enumerate(results)
+             if (r.ids >= 0).sum() < K and not r.stats.exhausted]
+    if short:
+        raise AssertionError(f"{what}: fewer than k = {K} ids in results "
+                             f"{short}, none of them exhausted")
+    return pairs_above(torch, sim, x, ids, eps)
+
+
+def same_result(what, got_ids, got_scores, want_ids, want_scores,
+                got_stats=None, want_stats=None, fields=()):
+    """Equal ids, equal score bits and equal stats ``fields``."""
+    got_scores = np.asarray(got_scores, np.float32)
+    want_scores = np.asarray(want_scores, np.float32)
+    if not (np.array_equal(got_ids, want_ids) and np.array_equal(
+            got_scores.view(np.int32), want_scores.view(np.int32))):
+        raise AssertionError(f"{what}: ids or score bits differ:\n"
+                             f"{got_ids} {got_scores}\n{want_ids} "
+                             f"{want_scores}")
+    for f in fields:
+        if getattr(got_stats, f) != getattr(want_stats, f):
+            raise AssertionError(f"{what}: {f} {getattr(got_stats, f)} != "
+                                 f"{getattr(want_stats, f)}")
+
+
+def diverse_recall(result_ids, truth_ids) -> float:
+    """benchmarks/common.py:22's recall of a diverse result against the
+    oracle's ids."""
+    a = {int(i) for i in result_ids if i >= 0}
+    b = {int(i) for i in truth_ids if i >= 0}
+    return 1.0 if not b else len(a & b) / len(b)
+
+
+def method_summary(results, walls, oracle) -> dict:
+    lat = sorted(walls)
+    Ks = [int(r.stats.K_final) for r in results]
+    return dict(
+        wall_p50_s=lat[len(lat) // 2], wall_mean_s=float(np.mean(walls)),
+        mean_total=float(np.mean([r.total for r in results])),
+        recall=float(np.mean([diverse_recall(r.ids, o.ids)
+                              for r, o in zip(results, oracle)])),
+        K_final_mean=float(np.mean(Ks)), K_final_max=max(Ks),
+        certified_share=float(np.mean([r.stats.certified for r in results])),
+        exhausted=int(sum(r.stats.exhausted for r in results)),
+        walls_s=list(walls), K_final=Ks)
+
+
+def per_query_path(torch, report, graph, qs_np, eps, served4, q9=Q9,
+                   pds_queries=PDS_QUERIES):
+    """Phase 9: the paper's per-query API and its baselines on phase 4's
+    graph and eps, over its first ``q9`` queries (PDS over the first
+    ``pds_queries``). Returns the path's launches of every kernel and its
+    launches by (lanes, width)."""
+    from repro_torch.core import api, baselines, batch
+    from repro_torch.core import batch_progressive as tbp
+    from repro_torch.core import similarity as sim
+    from repro_torch.kernels import ops
+
+    t_path = time.perf_counter()
+    if (q9, pds_queries) != (8, 8):
+        report.setdefault("reduced", []).append(
+            f"phase 9 runs {q9} queries, PDS {pds_queries} of them: at 8 "
+            "queries each it took 626 s (NVIDIA H100 80GB HBM3, 700 W), 350 s "
+            "of it PDS (7 of 8 N/A at max_K = 1024) and ~200 s its "
+            "batch_pds check")
+    x = graph.vectors
+    qs = qs_np[:q9]
+    pl = ShapedLaunches(ops)
+    results: dict = {}
+    walls: dict = {}
+    parts: dict = {}
+
+    def run(method, fn, queries=qs):
+        res, wall = [], []
+        for q in queries:
+            r, s = synced(torch, lambda: fn(q))
+            res.append(r)
+            wall.append(s)
+        pl.bank()
+        results[method], walls[method] = res, wall
+        log(f"phase 9 {method}: {sum(wall):.2f} s for {len(queries)} "
+            "queries")
+
+    try:
+        # (a) Alg. 2-4, one query at a time
+        t = time.perf_counter()
+        for m in PER_QUERY_METHODS:
+            kw = dict(max_K=PDS_MAX_K) if m == "pds" else {}
+            run(m, lambda q, m=m, kw=kw: api.diverse_search(
+                graph, q, K, eps, method=m, ef=EF, **kw),
+                qs[:pds_queries] if m == "pds" else qs)
+        parts["a_per_query_s"] = time.perf_counter() - t
+        # the per-query drivers against the batched engine's lanes
+        t = time.perf_counter()
+        for i, (r, w) in enumerate(zip(results["pss"], served4)):
+            same_result(f"pss query {i} against phase 4's served result",
+                        r.ids, r.scores, w.ids, w.scores, r.stats, w.stats,
+                        ("certified", "exhausted", "K_final", "growths"))
+        lock, _, lock_K = tbp.batch_pgs(graph, qs, K, eps, ef=EF)
+        for i, r in enumerate(results["pgs"]):
+            same_result(f"pgs query {i} against batch_pgs", r.ids, r.scores,
+                        lock.ids[i], lock.scores[i])
+            if int(r.stats.K_final) != int(lock_K[i]):
+                raise AssertionError(f"pgs query {i}: K {r.stats.K_final} "
+                                     f"!= batch_pgs's {lock_K[i]}")
+        lock = tbp.batch_pds(graph, qs[:pds_queries], K, eps, ef=EF,
+                             max_K=PDS_MAX_K)
+        for i, r in enumerate(results["pds"]):
+            same_result(f"pds query {i} against batch_pds", r.ids, r.scores,
+                        lock.ids[i], lock.scores[i], r.stats,
+                        lock.stats.lane_view(i),
+                        ("certified", "exhausted", "K_final"))
+        pl.drop()
+        parts["a_engine_checks_s"] = time.perf_counter() - t
+
+        # (b) the baselines and the ground truth on the same queries
+        t = time.perf_counter()
+        run("greedy", lambda q: api.diverse_search(graph, q, K, eps,
+                                                   method="greedy",
+                                                   L=GREEDY_L))
+        run("ip_greedy", lambda q: api.diverse_search(
+            graph, q, K, eps, method="ip_greedy", lam=IPG_LAM, L=GREEDY_L))
+        run("oracle", lambda q: baselines.div_astar_oracle(
+            x, graph.metric, q, K, eps, X=ORACLE_X))
+        parts["b_baselines_s"] = time.perf_counter() - t
+
+        # (c) the batch baselines
+        t = time.perf_counter()
+        qs16 = qs_np[:BATCH_Q]
+        bg, bg_s = synced(torch, lambda: batch.batch_greedy_diverse(
+            graph, qs16, K, eps, L=BATCH_L))
+        pl.bank()
+        bo, bo_s = synced(torch, lambda: batch.batch_optimal_diverse(
+            graph, qs16, K, eps, K=BATCH_K, ef=BATCH_EF))
+        pl.bank()
+        parts["c_batch_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        bg_ids, bg_sc = bg[0].cpu().numpy(), bg[1].cpu().numpy()
+        for i, q in enumerate(qs16):
+            one = baselines.greedy_fixed(graph, q, K, eps, L=BATCH_L)
+            same_result(f"batch_greedy_diverse lane {i} against greedy_fixed",
+                        bg_ids[i], bg_sc[i], one.ids, one.scores)
+        pl.drop()
+        parts["c_checks_s"] = time.perf_counter() - t
+    finally:
+        pl.restore()
+
+    # IP-greedy trades relevance against distance (Eq. 2) and takes no eps:
+    # its pairs above eps are counted, not refused
+    t = time.perf_counter()
+    above = {method: check_diverse(torch, sim, x, res, eps,
+                                   f"phase 9 {method}",
+                                   diverse=method != "ip_greedy")
+             for method, res in results.items()}
+    for what, ids, sc in (("batch_greedy_diverse", bg[0], bg[1]),
+                          ("batch_optimal_diverse", bo[0], bo[1])):
+        assert_results(torch, sim, x, ids, sc, eps, what)
+        if bool(((ids >= 0).sum(1) < K).any()):
+            raise AssertionError(f"{what}: a lane with fewer than k ids")
+    parts["gates_s"] = time.perf_counter() - t
+
+    oracle = results["oracle"]
+    out = dict(queries=q9, pds_queries=pds_queries, k=K, ef=EF, eps=eps,
+               pds_max_K=PDS_MAX_K,
+               oracle_X0=ORACLE_X, greedy_L=GREEDY_L, ip_greedy_lam=IPG_LAM,
+               methods={m: method_summary(results[m], walls[m], oracle)
+                        for m in results},
+               pds_na=int(sum(r.stats.exhausted for r in results["pds"])),
+               ip_greedy_pairs_above_eps=above["ip_greedy"],
+               oracle_X=[int(o.stats.K_final) for o in oracle],
+               oracle_complete=[bool(o.stats.certified) for o in oracle],
+               batch=dict(queries=BATCH_Q,
+                          greedy=dict(L=BATCH_L, wall_s=bg_s),
+                          optimal=dict(K=BATCH_K, ef=BATCH_EF, wall_s=bo_s,
+                                       certified_share=float(
+                                           bo[3].float().mean()))),
+               part_s=parts, widths=pl.hist,
+               launches={k: pl.total[k] for k in PATH9_KERNELS})
+    missing = [k for k in PATH9_KERNELS if pl.total[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the per-query path: "
+                             f"{missing}")
+    out["path_s"] = time.perf_counter() - t_path
+    report["per_query"] = out
+    log("phase 9: " + json.dumps({k: out[k] for k in (
+        "path_s", "part_s", "methods", "pds_na", "ip_greedy_pairs_above_eps",
+        "oracle_X", "batch", "launches")}))
+    log("launches by (lanes x width), phase 9: " + json.dumps(pl.hist))
+    return pl.total, pl.hist
+
+
+def single_lane_widths(hist: dict, name: str) -> list[int]:
+    """The most frequent single-lane width of kernel ``name`` (ties: the
+    wider) and its widest, from phase 9's launches by (lanes, width)."""
+    ones = {int(key.split(" x ")[1]): n for key, n in hist[name].items()
+            if key.startswith("1 x ")}
+    freq = max(ones, key=lambda w: (ones[w], w))
+    return sorted({freq, max(ones)})
+
+
+def time_phase9_shapes(torch, ops, sim, x, hist, seed, timings) -> dict:
+    """The single-lane adjacency and greedy against their plain versions
+    on tie-free prefixes at phase 9's most frequent single-lane width and
+    its widest, and timed there beside their bounds; each goes into its
+    kernels-line row as ``path9_shapes``."""
+    out: dict = {"pairwise_adjacency": [], "greedy_diversify": []}
+    for name, primary in (("pairwise_adjacency", "adjacency_kernel"),
+                          ("greedy_diversify", "greedy_")):
+        for W in single_lane_widths(hist, name):
+            ids, scores, _, eps = tie_free_prefixes(torch, sim, x, 1, W,
+                                                    "l2", seed + W, x.device)
+            valid = ids[0] >= 0
+            rows = x[ids[0].clamp(min=0).long()]
+            adj = ops.pairwise_adjacency(rows, eps[0], "l2", valid,
+                                         impl="ref")
+            if name == "pairwise_adjacency":
+                fn_k = lambda: ops.pairwise_adjacency(rows, eps[0], "l2",
+                                                      valid, impl="cuda")
+                fn_p = lambda: ops.pairwise_adjacency(rows, eps[0], "l2",
+                                                      valid, impl="ref")
+                work = adjacency_work(ids, x.shape[1])
+                got, want = fn_k(), adj
+                same = torch.equal(got, want)
+            else:
+                fn_k = lambda: ops.greedy_diversify(scores[0], adj, K, valid,
+                                                    impl="cuda")
+                fn_p = lambda: ops.greedy_diversify(scores[0], adj, K, valid,
+                                                    impl="ref")
+                got, want = fn_k(), fn_p()
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                work = greedy_work(scores, valid[None], want[1].long()[None],
+                                   K)
+            if not same:
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version at 1 x {W}")
+            ms, pms = time_ms(torch, fn_k), time_ms(torch, fn_p, reps=5)
+            dev_us, _, kept = device_us(torch, fn_k, primary)
+            bms, by = bound_ms(*work)
+            row = dict(lanes=1, width=W, ms=ms, plain_ms=pms, bound_ms=bms,
+                       bound_by=by, device_us=dev_us, device_us_kept=kept,
+                       host_us=host_us(ms, dev_us))
+            if name == "greedy_diversify":
+                row["dependent_steps"] = K
+            out[name].append(row)
+            log(f"time {name} at phase 9's 1 x {W}: kernel {ms:.4f} ms "
+                f"(device {dev_us} us), plain {pms:.4f} ms, bound "
+                f"{bms:.6f} ms ({by})")
+        timings[name]["path9_shapes"] = out[name]
+    return out
+
+
 def launch_histogram(counts: dict, launches: dict, what: str) -> dict:
     """{kernel: {"lanes x width": launches}} from an engine's
     ``SignatureLog.counts``: each signature of a kind in SIG_KERNELS is one
@@ -2360,9 +2716,13 @@ def main() -> int:
     elaunches = elastic_path(torch, report, db6, graph.vectors.cpu().numpy(),
                              qs_np, eps, served6, args.seed, device)
     del db6
+    plaunches, hist9 = per_query_path(torch, report, graph, qs_np, eps,
+                                      served4)
     hists = [report["main_path"]["widths"], report["sharded_path"]["widths"]]
     report["path_shape_times"] = time_at_path_shapes(
         torch, ops, sim, graph.vectors, hists, args.seed + 300, timings)
+    report["path9_shape_times"] = time_phase9_shapes(
+        torch, ops, sim, graph.vectors, hist9, args.seed + 400, timings)
     # the gathered scoring's device time per launch as the burst meets it:
     # its launches in phase 4's profiled lockstep batch
     prof = report["main_path"]["profile"]
@@ -2372,12 +2732,12 @@ def main() -> int:
                         / prof["sim_gather_launches"]
                         if prof["sim_gather_launches"] else None)
     row["device_us_kept"] = prof["sim_gather_launches"]
-    # each kernel's launches over the five paths' runs (each path's own
+    # each kernel's launches over the six paths' runs (each path's own
     # counts are in chip_smoke.json)
     kernels = []
     for name, row in timings.items():
         total = (launches[name] + qlaunches[name] + slaunches[name]
-                 + flaunches[name] + elaunches[name])
+                 + flaunches[name] + elaunches[name] + plaunches[name])
         kernels.append(dict(row, launches=int(total)))
     report["kernels"] = kernels
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:

@@ -1,5 +1,7 @@
-"""Beam search (paper Alg. 1) over a lane axis (port of ``repro.core.beam_search``:
-``SearchState``, ``init_state``, ``run_search``, ``beam_search``).
+"""Beam search (paper Alg. 1) and progressive beam search (paper §III) over
+a lane axis (port of ``repro.core.beam_search``: ``SearchState``,
+``init_state``, ``run_search``, ``resume_search``, ``beam_search``,
+``progressive_beam_search``, ``rebuild_for_growth``).
 
 The reference vmaps one ``lax.while_loop`` per query; here the lanes run
 in lockstep: each iteration expands the first unstable entry of every lane
@@ -13,9 +15,9 @@ Lanes may search different graphs stacked in one corpus (the shards of
 ``sharded_search``): ``row_offset`` gives each lane the first row of its
 graph, and its queue, visited set and neighbour lists hold ids local to it.
 
-``progressive_beam_search`` and ``rebuild_for_growth`` come with the
-per-query drivers; the batched engine runs its own burst and rebuild
-(``core.batch_progressive``).
+``progressive_beam_search`` and ``rebuild_for_growth`` serve the per-query
+drivers (``core.progressive.ProgressiveDriver``, one lane); the batched
+engine runs its own burst and rebuild (``core.batch_progressive``).
 """
 from __future__ import annotations
 
@@ -180,3 +182,50 @@ def beam_search(graph: FlatGraph, q: torch.Tensor, k: int, L: int,
     state = run_search(graph, qs, state, stable_limit=L, impl=impl)
     ids, scores = state.queue.ids[:, :k], state.queue.scores[:, :k]
     return (ids[0], scores[0]) if q.dim() == 1 else (ids, scores)
+
+
+def progressive_beam_search(graph: FlatGraph, qs: torch.Tensor,
+                            state: SearchState, K, ef: int,
+                            min_value=float("-inf")) -> SearchState:
+    """The paper's ProgressiveBeamSearch: resume until the first K*ef
+    candidates are stable. ``max_steps`` is the absolute default of
+    ``run_search``, as in the reference."""
+    return run_search(graph, qs, state, stable_limit=K * ef,
+                      min_value=min_value)
+
+
+def rebuild_for_growth(graph: FlatGraph, qs: torch.Tensor, state: SearchState,
+                       new_capacity: int) -> SearchState:
+    """Exact queue rebuild when the driver grows capacity.
+
+    Fixed capacity can silently drop (a) unexpanded frontier nodes and
+    (b) expanded nodes that fell below the old capacity boundary. Expanded
+    nodes are exactly the ``visited`` set, so rebuilding from (current
+    queue entries) ∪ (visited nodes, rescored) reproduces the
+    unbounded-queue state of the paper exactly. Every node is rescored
+    (``kops.batch_similarity``, one ``sim_many`` launch over the corpus on
+    the card); queue membership is an add-scatter, because several empty
+    sentinels all map to node 0; ``qmod.from_entries`` sorts the members
+    by (score desc, id asc)."""
+    n = graph.size
+    ids, _, stable = state.queue
+    dev = ids.device
+    all_ids = torch.arange(n, dtype=torch.int32, device=dev)
+    if quant.is_quantized(graph.vectors):
+        qprep = quant.prepare_query(graph.vectors, qs, graph.metric)
+        vis_scores = quant.score_rows(qprep, graph.vectors,
+                                      all_ids.expand(qs.shape[0], n),
+                                      graph.metric)
+    else:
+        vis_scores = kops.batch_similarity(qs, graph.vectors, graph.metric)
+    safe = ids.clamp(min=0).long()
+    zeros = torch.zeros(vis_scores.shape, dtype=torch.int32, device=dev)
+    in_queue = zeros.scatter_add(1, safe, (ids >= 0).to(torch.int32)) > 0
+    frontier_unstable = zeros.scatter_add(
+        1, safe, ((ids >= 0) & ~stable).to(torch.int32)) > 0
+    member = state.visited | in_queue
+    new_queue = qmod.from_entries(
+        torch.where(member, all_ids, -1),
+        torch.where(member, vis_scores, qmod.NEG_INF),
+        ~frontier_unstable, new_capacity)
+    return SearchState(new_queue, state.visited, state.steps)

@@ -101,6 +101,16 @@ def div_astar(scores, adj, k: int, max_expansions: int = 200_000) -> DivAStarRes
                           bool(t < 0), steps)
 
 
+def prefix_div_astar(ids, scores, adj, k: int, max_expansions: int = 200_000):
+    """div-A* over one candidate prefix held as tensors on any device: ids
+    int32[K] (-1 = padding, its score masked to -inf), scores f32[K], adj
+    bool[K, K], each copied to the host once. Returns ``(result, ids,
+    scores)``, the last two as the host arrays the selection is read from."""
+    ids, scores, adj = (t.cpu().numpy() for t in (ids, scores, adj))
+    res = div_astar(np.where(ids >= 0, scores, NEG), adj, k, max_expansions)
+    return res, ids, scores
+
+
 def optimal_diverse_set(scores, adj, k: int, max_expansions: int = 200_000):
     """Convenience: (ids_local int32[k] (-1 pad), total_score, complete)."""
     res = div_astar(scores, adj, k, max_expansions)

@@ -11,9 +11,9 @@ The ops come in the batched forms their callers use: the engine's lane
 batches, ``quantized_similarity_many`` for compressed corpora, and
 ``topk_merge`` over the rows of a tournament round and ``topk_tournament``
 over a whole tournament. The single-lane ``pairwise_adjacency`` (the
-Theorem-2 audit's) is one launch of the batched adjacency kernel at B = 1;
-the single-lane ``greedy_diversify`` (for the per-query drivers) comes with
-a later slice.
+Theorem-2 audit's, the per-query drivers' and the oracle's) and
+``greedy_diversify`` (PGS's and the Greedy baseline's) are one launch each
+of the batched adjacency and greedy kernels at B = 1.
 """
 from __future__ import annotations
 
@@ -166,6 +166,19 @@ def pairwise_adjacency(x: torch.Tensor, eps, metric: str,
     eps = torch.as_tensor(eps, dtype=torch.float32, device=x.device)
     return adjacency_cuda(_f32(x), ids[None].contiguous(), eps.reshape(1),
                           metric)[0]
+
+
+def greedy_diversify(scores: torch.Tensor, adj: torch.Tensor, k: int,
+                     valid: torch.Tensor | None = None,
+                     impl: str | None = None):
+    """Greedy diverse selection over one lane: scores (K,), adj (K, K),
+    valid (K,) or None -> (sel int32[k] local idx -1-padded, count int32).
+    On the kernel rung: one launch of the batched greedy kernel, one lane."""
+    if resolve(impl, scores) == "ref":
+        return _ref.greedy_diversify(scores, adj, k, valid)
+    s = scores if valid is None else torch.where(valid, scores, float("-inf"))
+    sel = greedy_cuda(_f32(s)[None], adj[None].contiguous(), k)[0]
+    return sel, torch.sum(sel >= 0).to(torch.int32)
 
 
 def greedy_diversify_batch(scores: torch.Tensor, adj: torch.Tensor, k: int,
