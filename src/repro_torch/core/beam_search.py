@@ -28,7 +28,7 @@ import torch
 from repro_torch import quant
 from repro_torch.core import queue as qmod
 from repro_torch.core.bucketing import next_pow2
-from repro_torch.core.graph import FlatGraph, descend
+from repro_torch.core.graph import FlatGraph
 from repro_torch.core.queue import Queue
 from repro_torch.kernels import ops as kops
 
@@ -39,6 +39,34 @@ class SearchState(NamedTuple):
     steps: torch.Tensor    # int32[...]
 
 
+def descend(graph: FlatGraph, q: torch.Tensor, impl: str | None = None) -> int:
+    """Greedy top-down descent through the upper HNSW levels.
+
+    Returns the level-0 entry node for query ``q``. Each level runs a greedy
+    walk: move to the best-scoring neighbor while it improves. A step scores
+    the current node's neighbours with one ``batch_similarity_gather``
+    (the burst's kernel on the card, ``query_sim`` on the CPU: the same
+    bits) and reads the first best back, two host syncs a step.
+    """
+    qs = q.to(graph.device, torch.float32).reshape(1, -1)
+    cur = int(graph.entry)
+    first = torch.full((1, 1), cur, dtype=torch.int32, device=graph.device)
+    cur_sim = kops.batch_similarity_gather(qs, graph.vectors, first,
+                                           graph.metric, impl)[0, 0]
+    for lvl in range(graph.num_upper_levels):   # upper[0] is the TOP level
+        level_nbrs = graph.upper[lvl]
+        for _ in range(graph.size):
+            nbrs = level_nbrs[cur]
+            sims = kops.batch_similarity_gather(qs, graph.vectors, nbrs[None],
+                                                graph.metric, impl)[0]
+            sims = torch.where(nbrs >= 0, sims, float("-inf"))
+            j = int(torch.argmax(sims))
+            if not bool(sims[j] > cur_sim):
+                break
+            cur, cur_sim = int(nbrs[j]), sims[j]
+    return cur
+
+
 def init_state(graph: FlatGraph, qs: torch.Tensor, capacity: int,
                impl: str | None = None) -> SearchState:
     """Start state of each query in qs[B, d] (leading lane axis): the queue
@@ -47,7 +75,7 @@ def init_state(graph: FlatGraph, qs: torch.Tensor, capacity: int,
     B = qs.shape[0]
     dev = graph.device
     if graph.num_upper_levels:
-        entries = [descend(graph, q) for q in qs]
+        entries = [descend(graph, q, impl) for q in qs]
     else:
         entries = [int(graph.entry)] * B
     entry = torch.tensor(entries, dtype=torch.int32, device=dev)

@@ -17,7 +17,6 @@ import numpy as np
 import torch
 
 from repro_torch import quant, resolve_device
-from repro_torch.core.similarity import query_sim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,23 +121,3 @@ def to_host(graph: FlatGraph) -> dict:
                 upper=graph.upper.cpu().numpy(),
                 entry=int(graph.entry), metric=graph.metric)
 
-
-def descend(graph: FlatGraph, q: torch.Tensor) -> int:
-    """Greedy top-down descent through the upper HNSW levels.
-
-    Returns the level-0 entry node for query ``q``. Each level runs a greedy
-    walk: move to the best-scoring neighbor while it improves.
-    """
-    cur = int(graph.entry)
-    cur_sim = query_sim(q, graph.vectors[cur][None, :], graph.metric)[0]
-    for lvl in range(graph.num_upper_levels):   # upper[0] is the TOP level
-        level_nbrs = graph.upper[lvl]
-        for _ in range(graph.size):
-            nbrs = level_nbrs[cur]
-            sims = query_sim(q, graph.vectors[nbrs.clamp(min=0)], graph.metric)
-            sims = torch.where(nbrs >= 0, sims, float("-inf"))
-            j = int(torch.argmax(sims))
-            if not bool(sims[j] > cur_sim):
-                break
-            cur, cur_sim = int(nbrs[j]), sims[j]
-    return cur

@@ -21,9 +21,10 @@ Everything underneath stays reachable (``db.scheduler``, ``db.backend``,
 ``db.index``, ``db.cache``). The graph or shards and the engine live on
 ``device`` (``cuda`` unless given); the corpus buffer, the delta and the
 bitmap stay on the host. The mesh is P shards on that one device
-(``compat.LocalMesh``). ``quantized=`` without ``shards=`` and
-``builder="hnsw"`` raise ``NotImplementedError`` naming the ROADMAP item
-each waits on.
+(``compat.LocalMesh``). ``quantized=`` without ``shards=`` raises
+``NotImplementedError``: the reference's single-host engine cannot serve a
+quantized graph either, so there is nothing to port; pass ``shards=`` with
+``quantized=``.
 """
 from __future__ import annotations
 
@@ -46,9 +47,10 @@ __all__ = ["DiverseVectorDB", "Query"]
 class DiverseVectorDB:
     """Index + engine + scheduler + cache behind one constructor.
 
-    ``vectors`` (float ``[n, d]``, a KNN graph is built over them on the
-    device) or a prebuilt ``index=`` (a ``FlatGraph``) seeds the corpus;
-    ``metric`` in {"l2", "ip", "cos"}.
+    ``vectors`` (float ``[n, d]``, a graph is built over them and placed
+    on the device: ``builder="knng"`` a KNN graph, ``"hnsw"`` the paper's
+    HNSW index) or a prebuilt ``index=`` (a ``FlatGraph``) seeds the
+    corpus; ``metric`` in {"l2", "ip", "cos"}.
 
     * ``shards=None`` serves single-host (``ProgressiveEngine``); an int
       builds a ``ShardedEngine`` over that many shards (``mesh=``
@@ -92,7 +94,7 @@ class DiverseVectorDB:
                  mesh=None, axis: str = "data", prewarm: bool = True,
                  elastic=None, seed: int = 0, backend_kw: dict | None = None,
                  scheduler_kw: dict | None = None, device=None):
-        refuse_unported(shards=shards, quantized=quantized, builder=builder)
+        refuse_unported(shards=shards, quantized=quantized)
         self.embed = embed
         elastic = elastic or None
         shard_align = None

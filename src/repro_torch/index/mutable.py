@@ -20,7 +20,7 @@ progressive search machinery stays untouched:
   revalidates against it. Bitmap and delta stay host numpy: a device
   scatter with repeated indices would not be deterministic.
 * **Background rebuild and epoch swap** — when the delta fills,
-  ``request_rebuild`` builds a fresh structure (``index.flat.build_knn_graph``
+  ``request_rebuild`` builds a fresh structure (the ``builder``'s graph
   single-host, ``sharded_search.build_sharded_index`` with ``shards=``, on
   the index's device) over a snapshot of the rows, optionally on a
   background thread. The swap is installed **between rounds**:
@@ -50,9 +50,11 @@ when the frontier carries padding, i.e. the graph was exhausted). The
 merged frontier adds every live delta point and drops tombstones. The
 re-audit certifies with ``min_value > max(s_K_merged, s_K_engine)``.
 
-Not ported here: a compressed single-host corpus (``quantized=`` without
-``shards=``) and the HNSW builder; each raises ``NotImplementedError``
-naming its ROADMAP item.
+``builder`` is "knng" (``index.flat.build_knn_graph``) or "hnsw"
+(``index.hnsw.build_hnsw``, the paper's index, upper levels included
+single-host). ``quantized=`` without ``shards=`` raises
+``NotImplementedError``: the reference's single-host engine cannot serve a
+quantized graph either, so there is nothing to port.
 """
 from __future__ import annotations
 
@@ -87,19 +89,16 @@ def _compact_served(ids, scores, live):
     return out_ids, out_sc
 
 
-def refuse_unported(*, shards=None, quantized=None,
-                    builder="knng") -> None:
-    """Raise ``NotImplementedError`` for the facade's branches this package
-    does not serve yet, naming the ROADMAP item each waits on."""
+def refuse_unported(*, shards=None, quantized=None) -> None:
+    """Raise ``NotImplementedError`` for ``quantized=`` without ``shards=``:
+    the reference's single-host engine cannot serve a quantized graph
+    either (its burst indexes the corpus as float rows), so there is
+    nothing to port. A compressed corpus is served sharded."""
     if quantized is not None and not shards:
         raise NotImplementedError(
-            "quantized=: the single-host engine over a quantized graph "
-            "(ProgressiveEngine.compressed, contract 13) is not ported yet "
-            "— ROADMAP queue 1 H")
-    if builder == "hnsw":
-        raise NotImplementedError(
-            "builder='hnsw': index/hnsw.py is not ported yet — ROADMAP "
-            "queue 1 F")
+            "quantized= without shards=: the reference's single-host engine "
+            "cannot serve a quantized graph either, so there is nothing to "
+            "port; pass shards= with quantized=")
 
 
 class MutableIndex:
@@ -123,7 +122,7 @@ class MutableIndex:
                  background: bool = True, seed: int = 0, device=None):
         if builder not in ("knng", "hnsw"):
             raise ValueError(f"unknown builder {builder!r}")
-        refuse_unported(shards=shards, quantized=quantized, builder=builder)
+        refuse_unported(shards=shards, quantized=quantized)
         if delta_capacity < 1:
             raise ValueError(f"delta_capacity={delta_capacity} must be >= 1")
         self.device = resolve_device(device)
@@ -470,6 +469,10 @@ class MutableIndex:
                 builder=self.builder, quantized=self.quantized,
                 scale_rows=self.scale_rows, seed=self.seed,
                 device=self.device)
+        if self.builder == "hnsw":
+            from repro_torch.index.hnsw import build_hnsw
+            return build_hnsw(snap, self.metric, M=self.M, seed=self.seed,
+                              device=self.device)
         from repro_torch.index.flat import build_knn_graph
         return build_knn_graph(snap, self.metric, M=self.M,
                                device=self.device)

@@ -44,6 +44,7 @@ from repro_torch.core.batch_progressive import _batched_div_astar
 from repro_torch.core.bucketing import next_pow2
 from repro_torch.core.graph import make_flat_graph
 from repro_torch.index.flat import build_knn_graph, rerank_rows
+from repro_torch.index.hnsw import build_hnsw
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import sort_top
 
@@ -159,12 +160,18 @@ def _corpus_parts(index: ShardedIndex):
 
 
 def _check_builder(builder: str) -> None:
-    if builder == "hnsw":
-        raise NotImplementedError(
-            "builder='hnsw' needs repro_torch.index.hnsw, which a later slice "
-            "ports (ROADMAP queue 1 F); use builder='knng'")
-    if builder != "knng":
+    if builder not in ("knng", "hnsw"):
         raise ValueError(f"unknown builder {builder!r}")
+
+
+def _shard_graph(chunk: np.ndarray, metric: str, M: int, builder: str,
+                 dev: torch.device):
+    """One shard's graph, of which the index keeps level 0 and the entry.
+    HNSW shards are built with the builder's defaults (ef_construction 200,
+    seed 0), as the reference builds them."""
+    if builder == "hnsw":
+        return build_hnsw(chunk, metric=metric, M=M, device=dev)
+    return build_knn_graph(chunk, metric=metric, M=M, device=dev)
 
 
 def build_sharded_index(vectors, num_shards: int, metric: str, M: int = 16,
@@ -173,15 +180,17 @@ def build_sharded_index(vectors, num_shards: int, metric: str, M: int = 16,
                         pq_codes: int = 256, pq_iters: int = 10,
                         pq_sample: int = 16384, seed: int = 0,
                         device=None) -> ShardedIndex:
-    """Partition the database into contiguous shards and build one KNN
-    graph per shard, on ``device`` (``cuda`` unless given).
+    """Partition the database into contiguous shards and build one graph
+    per shard (``builder`` "knng" or "hnsw"; an HNSW shard keeps its level
+    0 and entry), on ``device`` (``cuda`` unless given).
 
     ``quantized`` in {None, "int8", "pq"} selects the stored corpus: graphs
     are always built from the float rows; int8 quantizes each shard on its
     own (one scale per ``scale_rows`` of its rows), PQ trains codebooks on
-    the whole corpus and encodes every shard with them. The port's graph
-    builder can differ from the reference's on exactly tied KNN candidates;
-    ``index_from_host`` carries the reference's shards across instead.
+    the whole corpus and encodes every shard with them. The port's KNN
+    builder can differ from the reference's on exactly tied candidates
+    (``index_from_host`` carries the reference's shards across instead);
+    its HNSW builder gives the reference's graph bit for bit.
     """
     _check_builder(builder)
     if quantized is not None and quantized not in quant.QUANT_SCHEMES:
@@ -202,7 +211,7 @@ def build_sharded_index(vectors, num_shards: int, metric: str, M: int = 16,
     vecs, nbrs, entries, codes, scales = [], [], [], [], []
     for s in range(num_shards):
         chunk = x[s * ns:(s + 1) * ns]
-        g = build_knn_graph(chunk, metric=metric, M=M, device=dev)
+        g = _shard_graph(chunk, metric, M, builder, dev)
         vecs.append(g.vectors)
         nbrs.append(g.neighbors)
         entries.append(int(g.entry))
@@ -237,9 +246,9 @@ def reshard_index(index: ShardedIndex, num_shards: int, all_vectors=None, *,
     re-blocking of the stacked rows: global ids never move, int8 codes and
     scales are re-blocked exactly (``scale_rows`` must divide both shard
     sizes) and PQ codebooks are shared. Each new shard's graph is rebuilt
-    from its float rows with ``index.flat.build_knn_graph``, so a round trip
-    (4 -> 8 -> 4 with the same ``M``) gives back the original index bit for
-    bit.
+    from its float rows with ``builder`` (which, like ``M``, must be the
+    original build's), so a round trip (4 -> 8 -> 4) gives back the
+    original index bit for bit.
 
     ``all_vectors`` is the float corpus the caller keeps for a quantized
     index (whose ``vectors`` is None). ``M`` defaults to half the stored
@@ -275,8 +284,8 @@ def reshard_index(index: ShardedIndex, num_shards: int, all_vectors=None, *,
     dev = index.device
     vecs, nbrs, entries = [], [], []
     for s in range(num_shards):
-        g = build_knn_graph(flat[s * ns_new:(s + 1) * ns_new],
-                            metric=index.metric, M=M, device=dev)
+        g = _shard_graph(flat[s * ns_new:(s + 1) * ns_new], index.metric,
+                         M, builder, dev)
         vecs.append(g.vectors)
         nbrs.append(g.neighbors)
         entries.append(int(g.entry))

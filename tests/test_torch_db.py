@@ -312,15 +312,89 @@ def test_mutable_backend_protocols(port_db, clustered_data):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(quantized="int8"), "queue 1 H"), (dict(builder="hnsw"),
-                                            "queue 1 F")])
+    (dict(quantized="int8"), "nothing to port"),
+    (dict(quantized="pq", builder="hnsw"), "nothing to port")])
 def test_unported_branches_raise(clustered_data, kw, item):
+    """A quantized single-host graph is refused: the reference's engine
+    cannot serve one either. The refusal comes before the reference's own
+    ValueError for ``builder="hnsw"`` with ``quantized=``."""
     with pytest.raises(NotImplementedError, match=item):
         tdb.DiverseVectorDB(clustered_data, "l2", prewarm=False,
                             device="cpu", **kw)
     with pytest.raises(NotImplementedError, match=item):
         MutableIndex(clustered_data, "l2", background=False,
                      device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown builder"):
+        MutableIndex(clustered_data, "l2", builder="nsg", device="cpu")
+
+
+def _graph_arrays(g):
+    return [np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+            for a in (g.neighbors, g.upper)] + [int(g.entry)]
+
+
+def _assert_graph_equal(got, want):
+    for a, b in zip(_graph_arrays(got), _graph_arrays(want)):
+        np.testing.assert_array_equal(a, b)
+
+
+def _hnsw_facade(pkg, x):
+    """An HNSW facade: its graph, reads, writes and a foreground rebuild,
+    then the rebuilt graph and reads on it."""
+    qs = _queries(x, 6, seed=31)
+    db = _db(pkg, x, builder="hnsw", delta_capacity=64,
+             background_rebuild=False)
+    graphs = [db.index.graph]
+    out = [db.search_batch(qs, k=5, eps=-1.0, ef=12)]
+    db.upsert(qs[:2] + np.float32(0.01))
+    db.delete([int(out[0][0].ids[0]), 7])
+    assert db.rebuild(wait=True)
+    out.append(db.search_batch(qs, k=5, eps=-1.0, ef=12))
+    graphs.append(db.index.graph)
+    assert db.stats()["epoch_swaps"] == 1
+    return graphs, [[(np.asarray(r.ids).tolist(), np.asarray(r.scores),
+                      bool(r.stats.certified)) for r in rs] for rs in out]
+
+
+def test_hnsw_facade_matches_reference(clustered_data):
+    """``DiverseVectorDB(builder="hnsw")``: the same HNSW graph as the
+    reference's facade, the same results, and after writes and a
+    foreground rebuild the same rebuilt graph, upper levels included."""
+    x = clustered_data[:300]
+    got_g, got = _hnsw_facade(tdb, x)
+    want_g, want = _hnsw_facade(jdb, x)
+    for g, w in zip(got_g, want_g):
+        _assert_graph_equal(g, w)
+        assert g.num_upper_levels >= 1
+    assert got_g[1].size == len(x) + 2
+    for rs_g, rs_w in zip(got, want):
+        for g, w in zip(rs_g, rs_w):
+            assert (g[0], g[2]) == (w[0], w[2])
+            np.testing.assert_allclose(g[1], w[1], rtol=1e-5, atol=1e-5)
+
+
+def test_hnsw_mutable_index_matches_reference(clustered_data):
+    """``MutableIndex(builder="hnsw")`` builds the reference's graph, with
+    its ``seed``, and rebuilds it over the written rows (tombstoned rows
+    stay in place) as the reference does."""
+    from repro.index.mutable import MutableIndex as JMutableIndex
+
+    x = clustered_data[:200]
+    new = _queries(x, 3, seed=41)
+    idx = []
+    for cls, kw in ((MutableIndex, dict(device="cpu")), (JMutableIndex, {})):
+        m = cls(x, "l2", M=6, builder="hnsw", seed=2, delta_capacity=8,
+                background=False, **kw)
+        built = m.graph
+        m.upsert(new)
+        m.delete([4, 9])
+        assert m.request_rebuild(background=False)
+        m.install_swap()
+        idx.append((built, m.graph, m.epoch))
+    (t0, t1, te), (j0, j1, je) = idx
+    _assert_graph_equal(t0, j0)
+    _assert_graph_equal(t1, j1)
+    assert te == je == 1 and t1.size == len(x) + 3
 
 
 def test_write_admission_validates(port_db):

@@ -166,10 +166,27 @@ def test_reshard_index_validation():
     assert tss.reshard_index(idx, 4, x) is idx      # same count: no-op
     with pytest.raises(ValueError):
         tel.reshard_tree(idx)                       # needs mesh or shards=
-    with pytest.raises(NotImplementedError, match="queue 1 F"):
-        tss.reshard_index(idx, 2, builder="hnsw")
+    with pytest.raises(ValueError, match="unknown builder"):
+        tss.reshard_index(idx, 2, builder="nsg")
     with pytest.raises(NotImplementedError, match="queue 1 G"):
         tel.reshard_tree({"w": torch.zeros(2)}, shards=2, cfg=object())
+
+
+@pytest.mark.parametrize("quantized", [None, "int8"])
+def test_reshard_index_hnsw_matches_reference(quantized):
+    """``builder="hnsw"``: each new shard's HNSW graph (level 0 and entry)
+    is the reference's, bit for bit, float and int8 alike, and a round trip
+    gives the original index back."""
+    x = _corpus(3, n=256, d=8)
+    jidx = jss.build_sharded_index(x, 4, "l2", M=4, builder="hnsw",
+                                   quantized=quantized, scale_rows=2)
+    idx = tss.build_sharded_index(x, 4, "l2", M=4, builder="hnsw",
+                                  quantized=quantized, scale_rows=2,
+                                  device="cpu")
+    _assert_index_equal(idx, jidx)
+    idx2 = tss.reshard_index(idx, 2, x, builder="hnsw")
+    _assert_index_equal(idx2, jss.reshard_index(jidx, 2, x, builder="hnsw"))
+    _assert_index_equal(idx, tss.reshard_index(idx2, 4, x, builder="hnsw"))
 
 
 def test_reshard_tree_reads_the_mesh():

@@ -9,6 +9,7 @@ import torch
 from repro.core import graph as jgraph
 from repro.core import lane_state as jls
 from repro.index import flat as jflat
+from repro_torch.core import beam_search as tbs
 from repro_torch.core import graph as tgraph
 from repro_torch.core import lane_state as tls
 from repro_torch.index import flat as tflat
@@ -106,7 +107,7 @@ def test_descend_through_upper_levels_matches_reference(clustered_data):
     jg = jgraph.make_flat_graph(clustered_data, nbrs, upper, 5, "l2")
     tg = tgraph.from_host(jgraph.to_host(jg), device="cpu")
     for q in clustered_data[[3, 100, 400]] + 0.05:
-        assert tgraph.descend(tg, torch.from_numpy(q)) == int(
+        assert tbs.descend(tg, torch.from_numpy(q)) == int(
             jgraph.descend(jg, jnp.asarray(q)))
 
 

@@ -26,6 +26,7 @@ import torch
 
 from repro import sharded_search as J
 from repro.compat import make_mesh as jmake_mesh
+from repro.index import hnsw as jhnsw
 from repro_torch import sharded_search as T
 from repro_torch.compat import make_mesh as tmake_mesh
 
@@ -178,13 +179,32 @@ def test_sharded_index_builder_and_guards(world):
         assert tuple(getattr(tidx, f).shape) == getattr(jidx, f).shape, f
     _same(tidx.codes, jidx.codes, "int8 codes")
     _same(tidx.bases, jidx.bases, "bases")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.build_sharded_index(world.x, 1, "ip", builder="hnsw", device="cpu")
+    with pytest.raises(ValueError, match="unknown builder"):
+        T.build_sharded_index(world.x, 1, "ip", builder="nsg", device="cpu")
     with pytest.raises(ValueError, match="mesh"):
         T.sharded_topk(world.tidx, world.qs, 4, 16,
                        tmake_mesh((2,), ("data",), device="cpu"))
     with pytest.raises(ValueError, match="below the resumable-beam floor"):
         T.ShardedEngine(world.tidx, world.x, world.tmesh, state_capacity=8)
+
+
+@pytest.mark.parametrize("quantized", [None, "int8"])
+def test_build_sharded_index_hnsw_matches_reference(world, quantized):
+    """``builder="hnsw"``: every shard keeps the level 0 and the entry of
+    the reference's HNSW graph, bit for bit, float and int8 alike."""
+    x = world.x[:256]
+    tidx = T.build_sharded_index(x, 2, "ip", M=4, builder="hnsw",
+                                 quantized=quantized, device="cpu")
+    jidx = J.build_sharded_index(x, 2, "ip", M=4, builder="hnsw",
+                                 quantized=quantized)
+    for f in ("neighbors", "entries", "bases", "vectors", "codes", "scales"):
+        if getattr(jidx, f) is None:
+            assert getattr(tidx, f) is None, f
+        else:
+            _same(getattr(tidx, f), getattr(jidx, f), f)
+    shard0 = jhnsw.build_hnsw(x[:128], metric="ip", M=4)
+    _same(tidx.neighbors[0], shard0.neighbors, "shard 0 level 0")
+    assert int(tidx.entries[0]) == int(shard0.entry)
 
 
 def test_int8_stacked_view_pads_scale_blocks(world):
