@@ -110,10 +110,9 @@ Phases:
    epoch swap and 16 more: every result valid at its (epoch, version)
    tag, exactly one swap; the rebuild's seconds and the swap's drain
    time. (e) runs on a facade built from the first ``FD_REBUILD_ROWS`` =
-   125 000 rows with (d)'s writes (listed under ``reduced``: at 1M rows it
-   took the whole script past 600 s; at 250 000, phases 1-9's 781 s and
-   phase 10's 351 s add up to 1 132 s, within the hosts' spread of the
-   1 200 s limit). Phase 7 must launch sim_many,
+   62 500 rows with (d)'s writes (listed under ``reduced``: at 1M rows it
+   took the whole script past 600 s; at 125 000, with phase 11 added, the
+   whole script took 1 501 s). Phase 7 must launch sim_many,
    sim_gather, the adjacency and the fused round; launches of its checks
    are not counted.
 
@@ -148,10 +147,12 @@ Phases:
 
 9. The paper's per-query API on phase 4's graph, eps and queries; it
    builds nothing. (a) ``diverse_search(graph, q, k=10, eps, method=m,
-   ef=40)`` for m in pss, pgs, pds (PDS with ``max_K = PDS_MAX_K`` = 1024,
-   benchmarks/table2.py's) over the first ``Q9`` = 4 queries, PDS over the
-   first ``PDS_QUERIES`` = 1 (both cut from 8, listed under ``reduced``: at
-   8 phase 9 took 626 s), one at a time: each pss result must equal
+   ef=40)`` for m in pss, pgs, pds (PDS with ``max_K = PDS_MAX_K`` = 256,
+   cut from benchmarks/table2.py's 1 024) over the first ``Q9`` = 4
+   queries, PDS over the first ``PDS_QUERIES`` = 1 (both cut from 8; the
+   three cuts listed under ``reduced``: at 8 phase 9 took 626 s, and at
+   max_K = 1 024 its PDS query and check ~180 s of a 1 501 s script), one
+   at a time: each pss result must equal
    phase 4's served one (ids, score bits, certificate, exhausted, K_final,
    growths), each pgs result the lane of ``batch_pgs`` over the same
    queries (ids, score bits, K), each pds result the lane of ``batch_pds``
@@ -180,7 +181,7 @@ Phases:
    20 000 rows the script passed its time limit) and phase 4's queries,
    eps calibrated on those rows as phase 4's. The query counts of (c) and
    (d) are cuts too (listed under ``reduced``: at 64 / 4 / 4 the script
-   took 1 386.8 s). (a)
+   took 1 386.8 s; at 16 / 2 / 2 about 1 122 s before phase 11). (a)
    ``HNSWBuilder(rows, "l2", M=12, ef_construction=80, seed=0)``
    (load_graph's settings) and phase 4's KNN builder (M = 16): seconds, ms
    per insert, the levels, nodes per level, the entry and the share of
@@ -192,9 +193,9 @@ Phases:
    graph serves the first ``SERVED10`` = 16 queries as phase 4's does:
    QPS, p50/p99, certified share, the admissions' and ``descend``'s synced
    ms; every result diverse, the lockstep ``batch_pss`` of the first 16
-   and the plain rerun of the first ``RERUN10`` = 2 equal to the engine.
+   and the plain rerun of the first ``RERUN10`` = 1 equal to the engine.
    (d) ``diverse_search`` pss, pgs and greedy (L = 400) on the HNSW graph
-   and pss on the KNN graph over the first ``Q10`` = 2 queries, and
+   and pss on the KNN graph over the first ``Q10`` = 1 query, and
    ``div_astar_oracle`` (X = 1 024): wall, mean total, recall against
    the oracle, K_final, certified share; each per-query pss equal to its
    graph's engine-served result (ids, score bits, certificate, exhausted,
@@ -212,6 +213,29 @@ Phases:
    ``sharded_topk``'s recall@10. Phase 10 must launch sim_many, sim_gather,
    the adjacency, the fused round and topk_merge; launches of its checks
    are not counted. ``tools/torch_hnsw_path.py`` runs it alone.
+11. The RAG serving path (run after phase 7, while phase 4's graph is on
+   the card): (a) qwen2-1.5b (the JAX launcher's default arch) at full
+   width and all 28 layers, ``init_params`` on the card from a generator
+   seeded ``--seed + 500`` (parameters, bytes, seconds). (b)
+   ``RagPipeline(cfg, params, db=DiverseVectorDB(index=graph, ...), k=10,
+   eps, ef=40)``, the facade at phase 7 (a)'s settings with no cache,
+   ``generate`` for the first ``RAG_Q`` = 16 queries with 8 seeded prompt
+   tokens each and 16 steps: the retrieved ids and certificates must equal
+   phase 4's served results, every row diverse; retrieval wall and QPS,
+   each decode step synced (median ms, tokens/s) beside the weight-read
+   bound (the parameters' bytes over 3.35 TB/s). (c) The decode logits
+   along the generated sequence against ``forward`` on it (teacher
+   forced) within 8 bf16 ulps of the largest |logit|, and at 2 layers and
+   full width 4 decode steps on the card against the plain version on the
+   CPU on the same parameters within 4; the argmax equal wherever the
+   reference's top-2 margin exceeds twice the tolerance (the share
+   compared is printed). (d) 4 decode steps under torch.profiler: launches a step and
+   the device's idle share. Phase 11 must launch sim_many, sim_gather, the
+   adjacency and the fused round (its retrieval); the model is plain torch
+   (the JAX model has no Pallas kernel).
+
+Each phase's wall is logged on a line of its own and kept under
+``phase_walls_s`` in chiprun_out/chip_smoke.json, beside the script's.
 
 After phase 6: how many launches of pairwise_adjacency, fused_round and
 greedy_diversify ran at each (lanes, width) in phases 4 and 6, read from the
@@ -233,6 +257,7 @@ chiprun_out/chip_smoke.json. Any failure exits non-zero before the last line.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -274,12 +299,11 @@ TOURNAMENT_DEVICE_ROUTE = (8, 4096)   # (P, L): 256 KB of runs a lane
 # phase 7: the serving front door on phase 4's graph (cache and delta sizes,
 # the writes, and the queries of each part); FD_REBUILD_ROWS cuts (e) to a
 # facade of that many rows (None: (e) on phase 4's graph): its rebuild at
-# 1M rows took the whole script past 600 s; at 250 000 rows, phases 1-9
-# (781 s) and phase 10 (351 s) add up to 1 132 s, within the hosts' spread
-# of the 1 200 s limit
+# 1M rows took the whole script past 600 s; at 125 000 rows, with phase 11
+# added, the whole script took 1 501 s
 FD_CACHE, FD_DELTA, FD_UPSERTS, FD_DELETES, FD_SELF_QUERIES = 64, 256, 200, 64, 16
 FD_REGIME_QUERIES, FD_REBUILD_QUERIES, FD_AFTER_SWAP = 16, 32, 16
-FD_REBUILD_ROWS = 125_000
+FD_REBUILD_ROWS = 62_500
 PATH7_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
                  "pairwise_adjacency", "fused_round")
 # phase 8: the sharded facade (phase 6's, at 1M rows) and elastic rescaling
@@ -302,9 +326,12 @@ PATH8_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
 # counts are cuts (listed under ``reduced``): at 8 queries each phase 9 took
 # 626 s (tools/torch_per_query_path.py on an H100), 350 s of it PDS, which
 # at this eps stabilises up to max_K * ef = 40 960 candidates for a query
-# it then flags N/A (7 of 8), and ~200 s its batch_pds check
+# it then flags N/A (7 of 8), and ~200 s its batch_pds check. PDS_MAX_K is
+# cut too, from table2.py's TABLE2_MAX_K: at 1 024 the one PDS query took
+# 83.0 s and its batch_pds check ~100 s of a 1 501 s script
 Q9, PDS_QUERIES = 4, 1
-PDS_MAX_K, ORACLE_X, GREEDY_L, IPG_LAM = 1024, 1024, 400, 0.7
+TABLE2_MAX_K, PDS_MAX_K = 1024, 256
+ORACLE_X, GREEDY_L, IPG_LAM = 1024, 400, 0.7
 BATCH_Q, BATCH_L, BATCH_K, BATCH_EF = 16, 256, 128, 4
 PER_QUERY_METHODS = ("pss", "pgs", "pds")
 PATH9_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
@@ -315,17 +342,34 @@ PATH9_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
 # is listed under ``reduced``: at 20 000 rows the script took 1 260.5 s);
 # each graph's engine serves the first SERVED10 queries and reruns RERUN10
 # on the plain versions, the per-query API runs on the first Q10 (cuts
-# listed under ``reduced``: at 64 / 4 / 4 the script took 1 386.8 s); the
+# listed under ``reduced``: at 64 / 4 / 4 the script took 1 386.8 s, and
+# at 16 / 2 / 2 phases 1-9 (799.3 s) and phase 10 (322.9 s) add up to
+# 1 122 s before phase 11); the
 # facade
 # (builder="hnsw" at its defaults, M = 16, ef_construction = 200), its
 # writes and background rebuild (reads served while it runs, at most
 # FD10_MAX_ROUNDS batches), and the sharded path on the first FD10_ROWS rows
 N10, M10, EFC10 = 10_000, 12, 80
-SERVED10, RERUN10, Q10 = 16, 2, 2
+SERVED10, RERUN10, Q10 = 16, 1, 1
 FD10_ROWS, FD10_SHARDS, FD10_WRITES, FD10_QUERIES = 1_024, 4, 8, 16
 FD10_MAX_ROUNDS = 64
 PATH10_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
                   "pairwise_adjacency", "fused_round", "topk_merge")
+# phase 11: RAG at the full width of the JAX launcher's default arch
+# (src/repro/launch/serve.py), all its layers: retrieval for the first
+# RAG_Q queries, RAG_PROMPT seeded prompt tokens each, RAG_STEPS greedy
+# tokens. Logits are held to bf16 ulps of the largest |logit|: decode
+# against the forward pass through all 28 layers to RAG_FWD_ULPS (each
+# layer's bf16 roundings may fall apart between the two paths' matmul
+# shapes and softmax forms; 2.73 measured on a 200 000-row run), the card
+# against the plain CPU at RAG_CPU_LAYERS layers over RAG_CPU_STEPS steps
+# to RAG_LOGIT_ULPS (the CPU tests' bound at 2 layers);
+# RAG_PROFILE_STEPS decode steps profiled
+RAG_ARCH, RAG_Q, RAG_PROMPT, RAG_STEPS = "qwen2-1.5b", 16, 8, 16
+RAG_FWD_ULPS, RAG_LOGIT_ULPS = 8, 4
+RAG_CPU_LAYERS, RAG_CPU_STEPS, RAG_PROFILE_STEPS = 2, 4, 4
+PATH11_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
+                  "pairwise_adjacency", "fused_round")
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
@@ -704,6 +748,16 @@ class StageTimer:
         self._wrapped.clear()
 
 
+def device_events(torch, prof) -> list[tuple[str, float]]:
+    """(name, duration in µs) of every device activity ``prof`` recorded,
+    read from the profiler's kineto events as ``prof.events()`` reads
+    them, without building its Python event tree: the same events and
+    sums, several times quicker (``tools/torch_smoke_costs.py``)."""
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
 def profile_batch(torch, ops, run, batch_wall_s, what):
     """``run()`` again under torch.profiler: the device's busy share of its
     unprofiled wall time, kernels per burst step (one gathered-scoring
@@ -718,17 +772,16 @@ def profile_batch(torch, ops, run, batch_wall_s, what):
         torch.cuda.synchronize()
     steps = ops.launch_counts()["batch_similarity_gather"]
     t0 = time.perf_counter()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(torch, prof)
     log(f"profile parsed in {time.perf_counter() - t0:.1f} s")
-    busy_us = sum(e.device_time_total for e in kernels)
+    busy_us = sum(dur for _, dur in kernels)
     by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    for name, dur in kernels:
+        by_name[name] = by_name.get(name, 0.0) + dur
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # the gathered scoring's launches that the profiler kept with a duration
-    gather = [e.device_time_total for e in kernels
-              if "sim_gather" in e.name and e.device_time_total > 0]
+    gather = [dur for name, dur in kernels
+              if "sim_gather" in name and dur > 0]
     out = dict(device_kernels=len(kernels), burst_steps=steps,
                kernels_per_step=len(kernels) / max(steps, 1),
                device_busy_s=busy_us / 1e6, batch_wall_s=batch_wall_s,
@@ -1830,10 +1883,9 @@ def front_door(torch, report, graph, qs_np, eps, served4, seed, device):
             f"phase 7 (e) runs on a facade built from the first "
             f"{FD_REBUILD_ROWS} rows (DiverseVectorDB(vectors=...)), with "
             "(d)'s upserts and its deletes below that row: a rebuild at 1M "
-            "rows took the script past 600 s; at 250 000 rows phases 1-9 "
-            "(781 s) and phase 10 (351 s) add up to 1 132 s, within the "
-            "hosts' spread of the 1 200 s limit (NVIDIA H100 80GB HBM3, "
-            "700 W)")
+            "rows took the script past 600 s; at 125 000 rows, with phase "
+            "11 added, the whole script took 1 501 s, its (e) facade build "
+            "17.8 s (NVIDIA H100 80GB HBM3, 700 W)")
         t0 = time.perf_counter()
         db = DiverseVectorDB(graph.vectors[:FD_REBUILD_ROWS].cpu().numpy(),
                              "l2", num_lanes=LANES, max_k=K, default_ef=EF,
@@ -2429,6 +2481,12 @@ def per_query_path(torch, report, graph, qs_np, eps, served4, q9=Q9,
             "queries each it took 626 s (NVIDIA H100 80GB HBM3, 700 W), 350 s "
             "of it PDS (7 of 8 N/A at max_K = 1024) and ~200 s its "
             "batch_pds check")
+    if PDS_MAX_K != TABLE2_MAX_K:
+        report.setdefault("reduced", []).append(
+            f"phase 9's PDS runs at max_K = {PDS_MAX_K}, not "
+            f"benchmarks/table2.py's {TABLE2_MAX_K}: at {TABLE2_MAX_K} its "
+            "one query took 83.0 s (N/A) and its batch_pds check ~100 s of "
+            "a 1 501 s script (NVIDIA H100 80GB HBM3, 700 W)")
     x = graph.vectors
     qs = qs_np[:q9]
     pl = ShapedLaunches(ops)
@@ -2935,7 +2993,10 @@ def hnsw_path(torch, report, x_np, qs_np, seed, device):
         f"{RERUN10} on the plain versions, and the per-query API runs on "
         f"{Q10} queries: at 64 / 4 / 4 over 10 000 rows the whole script "
         "took 1 386.8 s (phases 1-9 799.3 s, phase 10 587.4 s; NVIDIA H100 "
-        "80GB HBM3, 700 W), past its 1 200 s limit; at eps of degree 100 "
+        "80GB HBM3, 700 W), past its 1 200 s limit; at 16 / 2 / 2 phase 10 "
+        "alone took 322.9 s (its plain reruns 87.6 s, the per-query API "
+        "~25 s a query on the HNSW graph and ~11 s on the KNN graph), ~1 122 "
+        "s with phases 1-9 before phase 11 was added; at eps of degree 100 "
         "over 10 000 rows a query takes ~6 500 expansions")
     out: dict = {}
     x = torch.as_tensor(x_np, device=device)
@@ -3067,6 +3128,225 @@ def hnsw_path_parts(torch, out, x_np, x, qs_np, qs, eps, seed, device, path):
                                     eps_fd, device, path)
     log("phase 10 (e) sharded (shard 0 equals build_hnsw's level 0, before "
         "and after the reshard): " + json.dumps(out["e_sharded"]))
+
+
+# ------------------------------------------------------------ phase 11 ----
+
+def bf16_tol(ref, ulps: int) -> float:
+    """``ulps`` bf16 ulps of the largest |value| of ``ref``."""
+    top = float(ref.abs().max())
+    return ulps * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def compare_logits(torch, got, want, ulps: int, what: str) -> dict:
+    """``got`` within ``ulps`` bf16 ulps of ``want``'s largest |logit|, and
+    the argmax equal wherever ``want``'s top-2 margin exceeds twice that;
+    returns the gap, the tolerance and the share of positions compared."""
+    tol = bf16_tol(want, ulps)
+    gap = float((got - want).abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    flips = int((got.argmax(-1) != want.argmax(-1))[sure].sum())
+    out = dict(max_abs_err=gap, tol=tol, ulps_of_largest=gap / (tol / ulps),
+               tokens_compared_share=float(sure.float().mean()),
+               token_mismatches=flips)
+    if not gap <= tol or flips:
+        raise AssertionError(f"{what}: {out}")
+    return out
+
+
+def decode_profile(torch, M, cfg, params, tokens, device) -> dict:
+    """``RAG_PROFILE_STEPS`` decode steps at B = len(tokens): their synced
+    wall, then the same steps under torch.profiler (device activity):
+    kernel launches a step and the device's idle share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def steps():
+        cache = M.init_cache(cfg, tokens.shape[0], RAG_PROFILE_STEPS,
+                             device=device)
+        for t in range(RAG_PROFILE_STEPS):
+            _, cache = M.decode_step(cfg, params, cache, tokens[:, t:t + 1])
+        torch.cuda.synchronize()
+
+    steps()
+    t0 = time.perf_counter()
+    steps()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps()
+    kernels = device_events(torch, prof)
+    busy = sum(dur for _, dur in kernels) / 1e6
+    by_name: dict[str, float] = {}
+    for name, dur in kernels:
+        by_name[name] = by_name.get(name, 0.0) + dur
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(steps=RAG_PROFILE_STEPS, wall_s=wall,
+                launches_per_step=len(kernels) / RAG_PROFILE_STEPS,
+                device_busy_s=busy,
+                device_idle_share=1.0 - busy / wall if busy else None,
+                top_kernels_s=[(n[:80], us / 1e6) for n, us in top])
+
+
+def rag_path(torch, report, graph, qs_np, eps, served4, seed, device):
+    """Phase 11: the RAG serving path at qwen2-1.5b's full width on phase
+    4's graph, eps, queries and served results. Returns the path's
+    launches of every kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import similarity as sim
+    from repro_torch.db import DiverseVectorDB
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.rag import RagPipeline
+
+    t_path = time.perf_counter()
+    out: dict = {}
+    cfg = get_config(RAG_ARCH)
+
+    # (a) the model: seeded random weights on the card
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed + 500), device=device)
+    torch.cuda.synchronize()
+    by_dtype: dict[str, int] = {}
+    for p in params.parameters():
+        key = str(p.dtype).removeprefix("torch.")
+        by_dtype[key] = by_dtype.get(key, 0) + p.numel()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    out["a"] = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+                    parameters=by_dtype, weight_bytes=weight_bytes,
+                    init_s=time.perf_counter() - t0)
+    log("phase 11 (a) model: " + json.dumps(out["a"]))
+
+    # (b) retrieval through the facade, then generation
+    path = PathLaunches(ops)
+    db = DiverseVectorDB(index=graph, metric="l2", num_lanes=LANES, max_k=K,
+                         default_ef=EF, scheduler_kw=dict(
+                             prewarm_capacity=1024, prewarm_ks=(K,),
+                             prewarm_widths=(64,)), device=device)
+    pipe = RagPipeline(cfg, params, db=db, k=K, eps=eps, ef=EF)
+    prompts = np.random.default_rng(seed + 501).integers(
+        0, cfg.vocab_size, (RAG_Q, RAG_PROMPT)).astype(np.int32)
+    retrieve, decode = pipe.retrieve, M.decode_step
+    walls: dict[str, float] = {}
+    step_ms: list[float] = []
+    step_logits: list = []
+
+    def timed_retrieve(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = retrieve(*a, **kw)
+        torch.cuda.synchronize()
+        walls["retrieve_s"] = time.perf_counter() - t
+        return res
+
+    def timed_decode(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = decode(*a)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        step_logits.append(logits[:, 0])
+        return logits, cache
+
+    pipe.retrieve = timed_retrieve
+    M.decode_step = timed_decode
+    try:
+        t0 = time.perf_counter()
+        tokens, ids, cert = pipe.generate(qs_np[:RAG_Q], prompts,
+                                          steps=RAG_STEPS)
+        generate_s = time.perf_counter() - t0
+    finally:
+        M.decode_step = decode
+        del pipe.retrieve
+    path.bank()
+    for i in range(RAG_Q):
+        want = served4[i]
+        if not (np.array_equal(ids[i], want.ids)
+                and bool(cert[i]) == bool(want.stats.certified)):
+            raise AssertionError(f"(b) query {i}: retrieved {ids[i]} "
+                                 f"certified={cert[i]}, phase 4 served "
+                                 f"{want.ids} certified="
+                                 f"{want.stats.certified}")
+    assert_results(torch, sim, graph.vectors, torch.as_tensor(
+        ids, device=device), torch.as_tensor(np.stack(
+            [served4[i].scores for i in range(RAG_Q)])), eps, "(b) RAG")
+    if tokens.shape != (RAG_Q, RAG_STEPS) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"(b) tokens {tokens.shape}: out of range")
+    decode_steps = len(step_ms)
+    median_ms = float(np.median(step_ms))
+    out["b"] = dict(
+        queries=RAG_Q, prompt_tokens=RAG_PROMPT, steps=RAG_STEPS,
+        retrieve_s=walls["retrieve_s"], qps=RAG_Q / walls["retrieve_s"],
+        certified_share=float(np.mean(cert)), generate_s=generate_s,
+        decode_steps=decode_steps, decode_ms_median=median_ms,
+        decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
+        decode_tokens_per_s=RAG_Q / (median_ms / 1e3),
+        generated_tokens_per_s=RAG_Q * RAG_STEPS / (
+            generate_s - walls["retrieve_s"]),
+        weight_read_bound_ms=weight_bytes / PEAK_BYTES_PER_S * 1e3,
+        bit_equal_to_phase4=True)
+    log("phase 11 (b) retrieval equal to phase 4's served results, every "
+        "row diverse; generation: " + json.dumps(out["b"]))
+
+    # (c) 1. decode along the generated sequence against the forward pass
+    seq = torch.cat([torch.remainder(torch.as_tensor(ids, dtype=torch.int64),
+                                     cfg.vocab_size),
+                     torch.as_tensor(prompts, dtype=torch.int64),
+                     torch.as_tensor(tokens, dtype=torch.int64)],
+                    dim=1).to(device)
+    dec = torch.stack(step_logits, dim=1)
+    del step_logits
+    fwd, _ = M.forward(cfg, params, dict(tokens=seq[:, :decode_steps]))
+    out["c_forward"] = compare_logits(torch, dec, fwd, RAG_FWD_ULPS,
+                                      "(c) decode against forward")
+    del dec, fwd
+    log("phase 11 (c) decode logits against the forward pass at full "
+        "width: " + json.dumps(out["c_forward"]))
+
+    # (c) 2. two layers at full width: the card against the plain CPU
+    cfg2 = dataclasses.replace(cfg, num_layers=RAG_CPU_LAYERS)
+    p2 = M.init_params(cfg2, torch.Generator(device=device).manual_seed(
+        seed + 502), device=device)
+    p2_cpu = M.from_host(cfg2, M.to_host(p2), device="cpu")
+    got, want = [], []
+    for params_, dev_, into in ((p2, device, got), (p2_cpu, "cpu", want)):
+        cache = M.init_cache(cfg2, RAG_Q, RAG_CPU_STEPS, device=dev_)
+        for t in range(RAG_CPU_STEPS):
+            logits, cache = M.decode_step(cfg2, params_, cache,
+                                          seq[:, t:t + 1].to(dev_))
+            into.append(logits[:, 0].cpu())
+    out["c_cpu"] = compare_logits(torch, torch.stack(got, 1),
+                                  torch.stack(want, 1), RAG_LOGIT_ULPS,
+                                  "(c) card against the CPU")
+    out["c_cpu"]["layers"] = RAG_CPU_LAYERS
+    del p2, p2_cpu
+    log(f"phase 11 (c) {RAG_CPU_LAYERS} layers at full width, "
+        f"{RAG_CPU_STEPS} decode steps, the card against the plain CPU: "
+        + json.dumps(out["c_cpu"]))
+
+    # (d) launches a decode step and the device's idle share
+    out["d"] = decode_profile(torch, M, cfg, params, seq, device)
+    log("phase 11 (d) decode steps profiled: " + json.dumps(out["d"]))
+    path.drop()
+    mem_before = torch.cuda.memory_allocated()
+    del pipe, params, db, retrieve
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["freed_bytes"] = mem_before - torch.cuda.memory_allocated()
+    out["path_s"] = time.perf_counter() - t_path
+    out["launches"] = dict(path.total)
+    missing = [k for k in PATH11_KERNELS if path.total[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the RAG path: "
+                             f"{missing}")
+    report["rag_path"] = out
+    log("phase 11: " + json.dumps({k: out[k] for k in ("path_s",
+                                                        "launches")}))
+    return path.total
 
 
 def launch_histogram(counts: dict, launches: dict, what: str) -> dict:
@@ -3204,9 +3484,20 @@ def main() -> int:
     from repro_torch.core import similarity as sim
     from repro_torch.kernels import _build, ops
 
+    walls = report["phase_walls_s"] = {}
+
+    def phase(name, fn, *a):
+        """``fn(*a)``, its wall logged on a line of its own and kept."""
+        t = time.perf_counter()
+        res = fn(*a)
+        walls[name] = time.perf_counter() - t
+        log(f"phase {name} wall: {walls[name]:.1f} s")
+        return res
+
     t0 = time.perf_counter()
     per_source = _build.build_all()
     build_s = time.perf_counter() - t0
+    walls["2"] = build_s
     log(f"kernel build: {build_s:.1f} s wall, per source "
         + json.dumps({k: round(v, 1) for k, v in per_source.items()}))
     logs = {name: _build.ptxas_log(name) for name in _build.SOURCES}
@@ -3217,35 +3508,46 @@ def main() -> int:
     report["ptxas"] = ptxas_summary(logs)
     for name, lines in report["ptxas"].items():
         log(f"ptxas {name}.cu:\n  " + "\n  ".join(lines))
+    log(f"phase 2 wall: {build_s:.1f} s")
 
-    x = deep_like(torch, args.n, D, args.seed + 100, device)
-    qs = deep_like(torch, LANES, D, args.seed + 101, device)
-    timings = check_kernels(torch, ops, sim, x, qs, args.seed, report)
-    del x
-    torch.cuda.empty_cache()
+    def kernels_phase():
+        x = deep_like(torch, args.n, D, args.seed + 100, device)
+        qs = deep_like(torch, LANES, D, args.seed + 101, device)
+        timings = check_kernels(torch, ops, sim, x, qs, args.seed, report)
+        del x
+        torch.cuda.empty_cache()
+        return timings
 
-    launches, graph, qs_np, eps, served4 = main_path(torch, args, report,
-                                                     device)
-    qrows, qlaunches = compressed_path(torch, report, graph, qs_np[:LANES],
-                                       args.seed, device)
+    timings = phase("3", kernels_phase)
+    launches, graph, qs_np, eps, served4 = phase(
+        "4", main_path, torch, args, report, device)
+    qrows, qlaunches = phase("5", compressed_path, torch, report, graph,
+                             qs_np[:LANES], args.seed, device)
     timings.update(qrows)
-    mrow, slaunches, db6, served6 = sharded_path(torch, report, graph, qs_np,
-                                                 eps, args.seed, device)
+    mrow, slaunches, db6, served6 = phase("6", sharded_path, torch, report,
+                                          graph, qs_np, eps, args.seed,
+                                          device)
     timings["topk_merge"] = mrow
-    flaunches = front_door(torch, report, graph, qs_np, eps, served4,
-                           args.seed, device)
-    elaunches = elastic_path(torch, report, db6, graph.vectors.cpu().numpy(),
-                             qs_np, eps, served6, args.seed, device)
+    flaunches = phase("7", front_door, torch, report, graph, qs_np, eps,
+                      served4, args.seed, device)
+    rlaunches = phase("11", rag_path, torch, report, graph, qs_np, eps,
+                      served4, args.seed, device)
+    elaunches = phase("8", elastic_path, torch, report, db6,
+                      graph.vectors.cpu().numpy(), qs_np, eps, served6,
+                      args.seed, device)
     del db6
-    plaunches, hist9 = per_query_path(torch, report, graph, qs_np, eps,
-                                      served4)
+    plaunches, hist9 = phase("9", per_query_path, torch, report, graph,
+                             qs_np, eps, served4)
     hists = [report["main_path"]["widths"], report["sharded_path"]["widths"]]
-    report["path_shape_times"] = time_at_path_shapes(
-        torch, ops, sim, graph.vectors, hists, args.seed + 300, timings)
-    report["path9_shape_times"] = time_phase9_shapes(
-        torch, ops, sim, graph.vectors, hist9, args.seed + 400, timings)
-    hlaunches = hnsw_path(torch, report, graph.vectors[:N10].cpu().numpy(),
-                          qs_np, args.seed, device)
+    report["path_shape_times"] = phase(
+        "after 6", time_at_path_shapes, torch, ops, sim, graph.vectors, hists,
+        args.seed + 300, timings)
+    report["path9_shape_times"] = phase(
+        "after 9", time_phase9_shapes, torch, ops, sim, graph.vectors, hist9,
+        args.seed + 400, timings)
+    hlaunches = phase("10", hnsw_path, torch, report,
+                      graph.vectors[:N10].cpu().numpy(), qs_np, args.seed,
+                      device)
     # the gathered scoring's device time per launch as the burst meets it:
     # its launches in phase 4's profiled lockstep batch
     prof = report["main_path"]["profile"]
@@ -3255,15 +3557,18 @@ def main() -> int:
                         / prof["sim_gather_launches"]
                         if prof["sim_gather_launches"] else None)
     row["device_us_kept"] = prof["sim_gather_launches"]
-    # each kernel's launches over the seven paths' runs (each path's own
+    # each kernel's launches over the eight paths' runs (each path's own
     # counts are in chip_smoke.json)
     kernels = []
     for name, row in timings.items():
         total = (launches[name] + qlaunches[name] + slaunches[name]
-                 + flaunches[name] + elaunches[name] + plaunches[name]
-                 + hlaunches[name])
+                 + flaunches[name] + rlaunches[name] + elaunches[name]
+                 + plaunches[name] + hlaunches[name])
         kernels.append(dict(row, launches=int(total)))
     report["kernels"] = kernels
+    report["script_s"] = time.perf_counter() - T0
+    log(f"script wall: {report['script_s']:.1f} s; phases: "
+        + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -15,6 +15,10 @@ import torch
 # A TF32 Gram flips ``sim > eps`` edges; every float32 product stays IEEE.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# cuBLAS may otherwise reduce a bf16 product's split-K partial sums in bf16;
+# the decoder's matmuls (models.layers.dot_f32) keep the reference's float32
+# accumulation and round once.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 DEFAULT_DEVICE = "cuda"
 

@@ -226,21 +226,23 @@ def build_knn_graph(vectors, metric: str = "l2", M: int = 16,
     return make_flat_graph(xt, neighbors, None, entry, metric, device=dev)
 
 
-def _directed_reachable(neighbors: np.ndarray, entry: int) -> np.ndarray:
-    n = neighbors.shape[0]
-    reached = np.zeros(n, bool)
+def _directed_reachable(neighbors: np.ndarray, entry: int,
+                        device=None) -> np.ndarray:
+    """Nodes reached from ``entry`` along directed edges, breadth first on
+    ``device`` (the graph's: the repair runs it every round, and on the
+    host it was the 1M build's largest pass; ``tools/torch_smoke_costs.py``
+    times the passes). The reached set is the reference's."""
+    nb = torch.as_tensor(neighbors, device=device).long()
+    reached = torch.zeros(nb.shape[0], dtype=torch.bool, device=nb.device)
     reached[entry] = True
-    frontier = np.array([entry])
-    while frontier.size:
-        nxt = neighbors[frontier].ravel()
+    frontier = torch.tensor([entry], device=nb.device)
+    while frontier.numel():
+        nxt = nb[frontier].flatten()
         nxt = nxt[nxt >= 0]
-        nxt = np.unique(nxt)
-        nxt = nxt[~reached[nxt]]
-        if nxt.size == 0:
-            break
+        nxt = torch.unique(nxt[~reached[nxt]])
         reached[nxt] = True
         frontier = nxt
-    return reached
+    return reached.cpu().numpy()
 
 
 def _most_similar(xt: torch.Tensor, norms, rows: np.ndarray,
@@ -293,7 +295,7 @@ def _directed_repair(xt: torch.Tensor, norms, neighbors: np.ndarray,
     in node order, as the reference adds them.
     """
     for _ in range(max_rounds):
-        reached = _directed_reachable(neighbors, entry)
+        reached = _directed_reachable(neighbors, entry, xt.device)
         missing = np.flatnonzero(~reached)
         if missing.size == 0:
             return neighbors
@@ -309,33 +311,41 @@ def _directed_repair(xt: torch.Tensor, norms, neighbors: np.ndarray,
     return neighbors
 
 
-def _undirected_connected(neighbors: np.ndarray) -> bool:
-    """Whether the undirected graph over the adjacency is one component."""
-    n, m0 = neighbors.shape
-    src = np.repeat(np.arange(n), m0)
-    dst = neighbors.ravel()
+def _undirected_connected(neighbors: np.ndarray, device=None) -> bool:
+    """Whether the undirected graph over the adjacency is one component:
+    breadth first from node 0 on ``device`` over out-edges and in-edges
+    (the in-edges grouped by target, CSR)."""
+    nb = torch.as_tensor(neighbors, device=device).long()
+    n, m0 = nb.shape
+    dev = nb.device
+    dst = nb.flatten()
     ok = dst >= 0
-    a = np.concatenate([src[ok], dst[ok]])
-    b = np.concatenate([dst[ok], src[ok]])
-    order = np.argsort(a, kind="stable")
-    indptr = np.searchsorted(a[order], np.arange(n + 1))
-    nbr = b[order]
-    seen = np.zeros(n, bool)
+    src = torch.arange(n, device=dev).repeat_interleave(m0)[ok]
+    dst = dst[ok]
+    order = torch.argsort(dst)
+    rev = src[order]
+    indptr = torch.searchsorted(dst[order], torch.arange(n + 1, device=dev))
+    seen = torch.zeros(n, dtype=torch.bool, device=dev)
     seen[0] = True
-    frontier = np.array([0])
-    while frontier.size:
-        starts, ends = indptr[frontier], indptr[frontier + 1]
-        lens = ends - starts
-        idx = np.repeat(starts - np.cumsum(lens) + lens, lens) + np.arange(lens.sum())
-        nxt = np.unique(nbr[idx])
-        nxt = nxt[~seen[nxt]]
+    frontier = torch.zeros(1, dtype=torch.long, device=dev)
+    while frontier.numel():
+        out = nb[frontier].flatten()
+        starts = indptr[frontier]
+        lens = indptr[frontier + 1] - starts
+        first = torch.cumsum(lens, 0) - lens
+        at = torch.arange(int(lens.sum()), device=dev)
+        into = rev[torch.repeat_interleave(starts - first, lens) + at]
+        nxt = torch.cat([out[out >= 0], into])
+        nxt = torch.unique(nxt[~seen[nxt]])
         seen[nxt] = True
         frontier = nxt
     return bool(seen.all())
 
 
 def _components(neighbors: np.ndarray) -> np.ndarray:
-    """Undirected connected components over the adjacency (union-find)."""
+    """Undirected connected components over the adjacency (union-find, the
+    reference's edge order and unions: each root is the reference's). A
+    node's root is carried along its row, not looked up again per edge."""
     n = neighbors.shape[0]
     parent = list(range(n))
 
@@ -346,11 +356,13 @@ def _components(neighbors: np.ndarray) -> np.ndarray:
         return a
 
     for i, row in enumerate(neighbors.tolist()):
+        ri = find(i)
         for j in row:
             if j >= 0:
-                ra, rb = find(i), find(j)
-                if ra != rb:
-                    parent[ra] = rb
+                rj = find(j)
+                if ri != rj:
+                    parent[ri] = rj
+                    ri = rj
     return np.array([find(i) for i in range(n)])
 
 
@@ -363,7 +375,7 @@ def _stitch_components(xt: torch.Tensor, norms, neighbors: np.ndarray,
     (member, main) order — is found on the device."""
     m0 = neighbors.shape[1]
     for _ in range(max_rounds):
-        if _undirected_connected(neighbors):
+        if _undirected_connected(neighbors, xt.device):
             return neighbors
         comp = _components(neighbors)
         main = comp[entry]

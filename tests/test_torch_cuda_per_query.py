@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import api, baselines, batch
 from repro_torch.core import batch_progressive as tbp
+from repro_torch.core import diversity_graph as tdg
 from repro_torch.index.flat import build_knn_graph
 from repro_torch.kernels import ops as tops
 
@@ -125,3 +126,35 @@ def test_cuda_per_query_pss_equals_batch_pss(world):
                                           lanes.scores[i].view(np.int32))
             for f in ("certified", "exhausted", "K_final", "growths"):
                 assert getattr(one.stats, f) == getattr(lanes.stats, f)[i]
+
+
+def test_cuda_pds_extend_adjacency_equals_plain(world, monkeypatch):
+    """At k = 16, eps = -0.5 and ef = 1 PDS's prefix grows from a full
+    64-wide bucket to 128 (on the CPU, query 4), so ``prefix_adjacency``
+    extends G^eps with ``extend_adjacency``, which scores the fresh rows
+    with ``sim_many``. Every call is counted; the extension must run, with
+    fresh rows, on the kernel rung, and the results equal the plain
+    versions' bit for bit."""
+    graph, qs = world
+    fresh = []
+    extend = tdg.extend_adjacency
+
+    def counted(g, old_adj, old_ids, new_ids, eps, impl=None):
+        fresh.append(new_ids.shape[0] - old_ids.shape[0])
+        return extend(g, old_adj, old_ids, new_ids, eps, impl)
+
+    monkeypatch.setattr(tdg, "extend_adjacency", counted)
+    kernel_fresh = 0
+    for i, q in enumerate(qs):
+        fresh.clear()
+        got, want, launches = _on_both(lambda: api.diverse_search(
+            graph, q, 16, -0.5, method="pds", ef=1, max_K=256))
+        _assert_same(got, want, f"pds query {i}")
+        # the two rungs extend at the same widths: _on_both runs the
+        # kernel rung first, then the plain one
+        half = len(fresh) // 2
+        assert fresh[:half] == fresh[half:], fresh
+        kernel_fresh += sum(f > 0 for f in fresh[:half])
+        if any(f > 0 for f in fresh[:half]):
+            assert launches["batch_similarity_many"] > 0
+    assert kernel_fresh >= 1
