@@ -233,6 +233,32 @@ Phases:
    the device's idle share. Phase 11 must launch sim_many, sim_gather, the
    adjacency and the fused round (its retrieval); the model is plain torch
    (the JAX model has no Pallas kernel).
+12. The other model families (run after phase 11, while phase 4's graph
+   is on the card), one arch of each at full width: moonshot-v1-16b-a3b
+   (moe, 48 layers), mamba2-370m (ssm), recurrentgemma-9b (hybrid, 38
+   layers: 12 RRA superblocks and two recurrent tail blocks),
+   whisper-small (encdec) and llama-3.2-vision-90b at ``FAM_VLM_LAYERS`` =
+   10 layers (vlm; listed under ``reduced``: 210 GB of bf16 weights do not
+   fit one 80 GB card). Each (a) ``init_params`` on the card from
+   ``Generator(--seed + 600 + i)``; (b) ``RagPipeline(cfg, params, db=...)``
+   on ONE ``DiverseVectorDB(index=graph, cache_size=64)`` generating for
+   the first 16 queries, 8 prompt tokens and 8 steps: the first family's
+   retrieval fills the cache, the others hit it, and every family's ids and
+   certificates must equal phase 4's served results, every row diverse;
+   (c) ms a synced decode step (median), tokens/s beside the step's read
+   bound (the parameters a decode step reads, plus its cache read once and
+   its recurrent state written once, over 3.35 TB/s), 4 decode steps under
+   torch.profiler (launches a step, the device's idle share) and
+   ``max_memory_allocated``; (d) decode against ``forward`` on the served
+   sequence within 8 bf16 ulps (moe at capacity_factor = E / topk, where
+   no pair drops; the served capacity drops different pairs in the two
+   paths; encdec with its cross cache filled from the encoder's output of
+   seeded frames), and the card against the plain CPU at the least depth
+   that holds each block kind once (moe 2, ssm 2, hybrid 3, encdec 2 + 2,
+   vlm 5 + 1) within 4, vlm's gates at 0.5 and the cross caches seeded so
+   that the cross-attention contributes. Every model is freed before phase
+   8. Phase 12 must launch what phase 11 does (its retrieval);
+   ``tools/torch_rag_path.py --phase12`` runs phases 4 and 12 alone.
 
 Each phase's wall is logged on a line of its own and kept under
 ``phase_walls_s`` in chiprun_out/chip_smoke.json, beside the script's.
@@ -370,6 +396,37 @@ RAG_FWD_ULPS, RAG_LOGIT_ULPS = 8, 4
 RAG_CPU_LAYERS, RAG_CPU_STEPS, RAG_PROFILE_STEPS = 2, 4, 4
 PATH11_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
                   "pairwise_adjacency", "fused_round")
+# phase 12: the other families at full width through RagPipeline, one
+# arch of each, seeded Generator(seed + 600 + i); vlm cut to FAM_VLM_LAYERS
+# (2 of its 20 superblocks: 210 GB of bf16 weights do not fit one 80 GB
+# card). Each serves the first RAG_Q queries (RAG_PROMPT prompt tokens,
+# FAM_STEPS new ones) on one DiverseVectorDB with a FAM_CACHE-entry result
+# cache. Decode is held against forward (moe at capacity_factor = E / topk,
+# where no pair drops) to FAM_FWD_ULPS, and the card against the plain CPU
+# at FAM_CHECK_DEPTH (each block kind once) over FAM_CPU_STEPS steps to
+# RAG_LOGIT_ULPS. ssm's bound is wider: the reference's decode rounds the
+# SSD output to bf16 before its skip term and its forward does not
+# (src/repro/models/ssm.py:93 against :81), one rounding more a layer over
+# 48 (10.4-10.7 ulps on an NVIDIA H100 80GB HBM3). moe's logits are held
+# with the second path's routes replayed from the first (RouteLog): at
+# moonshot's width a bf16 flip of the hidden state moves the router's 6th
+# and 7th experts past each other in ~6 % of the forward's (token, layer)
+# routes against the decode's (5.5-5.8 % on the same card), and one
+# flipped route moves a token's logits by tens of ulps
+FAM_ARCHS = ("moonshot-v1-16b-a3b", "mamba2-370m", "recurrentgemma-9b",
+             "whisper-small", "llama-3.2-vision-90b")
+# (cut to keep the phase near 120 s: FAM_STEPS 8 new tokens, not phase
+# 11's 16, and fewer CPU steps for the widest blocks, each listed under
+# ``reduced``; 129.4 s at 16 over 200 000 rows on an NVIDIA H100 80GB HBM3
+# at 700 W)
+FAM_VLM_LAYERS, FAM_CACHE, FAM_STEPS = 10, 64, 8
+FAM_FWD_ULPS = {"moe": 8, "ssm": 16, "hybrid": 8, "encdec": 8, "vlm": 8}
+FAM_CHECK_DEPTH = {"moe": dict(num_layers=2), "ssm": dict(num_layers=2),
+                   "hybrid": dict(num_layers=3),
+                   "encdec": dict(num_layers=2, encoder_layers=2),
+                   "vlm": dict(num_layers=5)}
+FAM_CPU_STEPS = {"moe": 2, "ssm": 4, "hybrid": 2, "encdec": 4, "vlm": 1}
+PATH12_KERNELS = PATH11_KERNELS
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
@@ -3138,19 +3195,26 @@ def bf16_tol(ref, ulps: int) -> float:
     return ulps * 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
-def compare_logits(torch, got, want, ulps: int, what: str) -> dict:
-    """``got`` within ``ulps`` bf16 ulps of ``want``'s largest |logit|, and
-    the argmax equal wherever ``want``'s top-2 margin exceeds twice that;
-    returns the gap, the tolerance and the share of positions compared."""
+def logit_gap(torch, got, want, ulps: int) -> dict:
+    """The gap between ``got`` and ``want`` against ``ulps`` bf16 ulps of
+    ``want``'s largest |logit|, and the argmax mismatches where ``want``'s
+    top-2 margin exceeds twice that."""
     tol = bf16_tol(want, ulps)
     gap = float((got - want).abs().max())
     top2 = torch.topk(want, 2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > 2 * tol
     flips = int((got.argmax(-1) != want.argmax(-1))[sure].sum())
-    out = dict(max_abs_err=gap, tol=tol, ulps_of_largest=gap / (tol / ulps),
-               tokens_compared_share=float(sure.float().mean()),
-               token_mismatches=flips)
-    if not gap <= tol or flips:
+    return dict(max_abs_err=gap, tol=tol, ulps_of_largest=gap / (tol / ulps),
+                tokens_compared_share=float(sure.float().mean()),
+                token_mismatches=flips)
+
+
+def compare_logits(torch, got, want, ulps: int, what: str) -> dict:
+    """``got`` within ``ulps`` bf16 ulps of ``want``'s largest |logit|, and
+    the argmax equal wherever ``want``'s top-2 margin exceeds twice that;
+    returns the gap, the tolerance and the share of positions compared."""
+    out = logit_gap(torch, got, want, ulps)
+    if not out["max_abs_err"] <= out["tol"] or out["token_mismatches"]:
         raise AssertionError(f"{what}: {out}")
     return out
 
@@ -3349,6 +3413,358 @@ def rag_path(torch, report, graph, qs_np, eps, served4, seed, device):
     return path.total
 
 
+# ------------------------------------------------------------ phase 12 ----
+
+def step_read_bytes(cfg, params, cache) -> int:
+    """The bytes one decode step must move: every parameter it reads (not
+    an untied embedding table, of which it gathers B rows, nor encdec's
+    learned positions and encoder, nor vlm's cross k / v projections,
+    whose output the cache holds), each cache tensor read once and the
+    recurrent states (ssm's, hybrid's) written once."""
+    head_is_embed = cfg.tie_embeddings or cfg.family == "encdec"
+    total = 0
+    for name, p in params.named_parameters():
+        if (name.startswith(("enc_blocks.", "enc_ln.", "dec_pos"))
+                or (name == "embed" and not head_is_embed)
+                or (name.startswith("cross_blocks.")
+                    and name.endswith(("attn.wk", "attn.wv")))):
+            continue
+        total += p.numel() * p.element_size()
+    for key, t in cache.items():
+        written = key in ("conv", "h", "lru_h") or key.endswith(("_h",
+                                                                 "_conv"))
+        total += t.numel() * t.element_size() * (2 if written else 1)
+    return total
+
+
+class RouteLog:
+    """Records the experts each ``moe.route`` call picks, or, with
+    ``replay`` set, makes each call take the recorded experts instead (its
+    gates renormalised over them from this run's router probabilities, its
+    ranks recomputed) and counts the routes whose own top-k would have
+    differed."""
+
+    def __init__(self, moe):
+        self.moe, self.real = moe, moe.route
+        self.log: list = []
+        self.replay: list | None = None
+        self.flips = self.routes = 0
+
+    def __enter__(self):
+        self.moe.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+    def route(self, router_w, xt, num_experts, experts_per_token,
+              capacity_factor):
+        probs, gate, expert, *rest = self.real(
+            router_w, xt, num_experts, experts_per_token, capacity_factor)
+        if self.replay is None:
+            self.log.append(expert)
+            return (probs, gate, expert, *rest)
+        forced = self.replay.pop(0).to(expert.device)
+        self.flips += int((forced.sort(-1).values != expert.sort(-1).values)
+                          .any(-1).sum())
+        self.routes += forced.shape[0]
+        gate = probs.gather(1, forced)
+        gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+        return (probs, gate, forced,
+                *self.moe.ranks(forced, num_experts, capacity_factor))
+
+    def decode_as_forward(self, torch, layers: int, batch: int) -> list:
+        """The log of ``steps`` decode steps over ``layers`` moe layers
+        (step-major) as a forward pass's calls: one [batch * steps, topk]
+        per layer, tokens batch-major."""
+        steps = len(self.log) // layers
+        return [torch.stack([self.log[t * layers + l] for t in range(steps)],
+                            1).reshape(batch * steps, -1)
+                for l in range(layers)]
+
+
+def family_decode(torch, M, cfg, params, seq, steps, device, fill=None):
+    """``steps`` decode steps of ``seq`` from a fresh cache (its cross k / v
+    copied from ``fill`` where given): the logits [B, steps, V]."""
+    cache = M.init_cache(cfg, seq.shape[0], steps, device=device)
+    for key, t in (fill or {}).items():
+        cache[key].copy_(t)
+    out = []
+    for t in range(steps):
+        logits, cache = M.decode_step(cfg, params, cache,
+                                      seq[:, t:t + 1].to(device))
+        out.append(logits[:, 0])
+    return torch.stack(out, 1)
+
+
+def decode_against_forward(torch, M, cfg, params, seq, served_logits, seed,
+                           device) -> dict:
+    """(d) 1: decode along ``seq`` against the forward pass on it. ssm,
+    hybrid and vlm as served (vlm's zero gates add exactly 0 in both); moe
+    at capacity_factor = E / topk, where no pair drops (the served capacity
+    drops different pairs in the two paths), its forward compared freely
+    (tokens, route flips) and, for the logits, with the decode's routes
+    replayed; encdec with its cross cache filled from the encoder's output
+    of seeded frames."""
+    import dataclasses
+
+    from repro_torch.models import encdec
+    from repro_torch.models import moe
+
+    n = served_logits.shape[1]
+    batch = dict(tokens=seq[:, :n])
+    dec = served_logits
+    gen = torch.Generator(device=device).manual_seed(seed)
+    what = f"(d) {cfg.name} decode against forward"
+    if cfg.num_frontend_tokens:
+        batch["frontend_embeds"] = (torch.randn(
+            (seq.shape[0], cfg.num_frontend_tokens, cfg.d_model),
+            generator=gen, device=device) * 0.5).to(torch.bfloat16)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+        for t in (seq.shape[0], seq.shape[0] * n):
+            cap = int(t * cfg.experts_per_token * cfg.capacity_factor
+                      / cfg.num_experts)
+            if cap < t:
+                raise AssertionError(f"(d) capacity {cap} < {t} tokens")
+        with RouteLog(moe) as dec_routes:
+            dec = family_decode(torch, M, cfg, params, seq, n, device)
+        free, _ = M.forward(cfg, params, batch)
+        free_out = logit_gap(torch, dec, free, FAM_FWD_ULPS[cfg.family])
+        del free
+        with RouteLog(moe) as fwd_routes:
+            fwd_routes.replay = dec_routes.decode_as_forward(
+                torch, cfg.num_layers, seq.shape[0])
+            fwd, _ = M.forward(cfg, params, batch)
+        out = compare_logits(torch, dec, fwd, FAM_FWD_ULPS[cfg.family],
+                             what + " (decode's routes replayed)")
+        out.update(free_ulps_of_largest=free_out["ulps_of_largest"],
+                   free_token_mismatches=free_out["token_mismatches"],
+                   route_flips=fwd_routes.flips, routes=fwd_routes.routes,
+                   route_flip_share=fwd_routes.flips / fwd_routes.routes)
+        out["steps"] = n
+        return out
+    if cfg.family == "encdec":
+        enc = encdec.encode(cfg, params, batch["frontend_embeds"])
+        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        fill = {key: torch.stack([
+            encdec._project(getattr(p.cross_attn, w), getattr(p.cross_attn, b),
+                            enc, kv, hd) for p in params.dec_blocks])
+            for key, w, b in (("cross_k", "wk", "bk"),
+                              ("cross_v", "wv", "bv"))}
+        dec = family_decode(torch, M, cfg, params, seq, n, device, fill)
+        del enc, fill
+    fwd, _ = M.forward(cfg, params, batch)
+    out = compare_logits(torch, dec, fwd, FAM_FWD_ULPS[cfg.family], what)
+    out["steps"] = n
+    return out
+
+
+def card_against_cpu(torch, M, cfg, seq, seed, device) -> dict:
+    """(d) 2: at the least depth that holds each of the family's block
+    kinds once, FAM_CPU_STEPS decode steps on the card against the plain
+    CPU on the same parameters (vlm's gates at 0.5, encdec's and vlm's
+    cross caches seeded, so that the cross-attention contributes; moe with
+    the card's routes replayed on the CPU, the flips counted)."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(cfg, **FAM_CHECK_DEPTH[cfg.family])
+    steps = FAM_CPU_STEPS[cfg.family]
+    t0 = time.perf_counter()
+    card = M.init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device=device)
+    for blk in getattr(card, "cross_blocks", ()):
+        blk.gate.fill_(0.5)
+    cpu = M.abstract_params(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()},
+                        assign=True)
+    shapes = M.init_cache(cfg, seq.shape[0], steps, device="meta")
+    gen = torch.Generator().manual_seed(seed)
+    fill = {key: torch.randn(shapes[key].shape, generator=gen).to(
+        shapes[key].dtype) for key in ("cross_k", "cross_v") if key in shapes}
+    with RouteLog(moe) as routes:
+        got = family_decode(torch, M, cfg, card, seq, steps, device, {
+            k: v.to(device) for k, v in fill.items()}).cpu()
+        del card
+        t1 = time.perf_counter()
+        routes.replay = routes.log
+        want = family_decode(torch, M, cfg, cpu, seq.cpu(), steps, "cpu",
+                             fill)
+    out = compare_logits(torch, got, want, RAG_LOGIT_ULPS,
+                         f"(d) {cfg.name} card against the CPU")
+    out.update(layers=cfg.num_layers, encoder_layers=cfg.encoder_layers,
+               steps=steps, cpu_s=time.perf_counter() - t1,
+               s=time.perf_counter() - t0)
+    if routes.routes:
+        out.update(route_flips=routes.flips, routes=routes.routes)
+    return out
+
+
+def families_path(torch, report, graph, qs_np, eps, served4, seed, device):
+    """Phase 12: one arch of each other family at full width (vlm at
+    FAM_VLM_LAYERS) served through ``RagPipeline`` on one cached facade
+    over phase 4's graph; phase 4's eps, queries and served results.
+    Returns the path's launches of every kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import similarity as sim
+    from repro_torch.db import DiverseVectorDB
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.rag import RagPipeline
+
+    t_path = time.perf_counter()
+    out: dict = {"families": {}}
+    path = PathLaunches(ops)
+    db = DiverseVectorDB(index=graph, metric="l2", num_lanes=LANES, max_k=K,
+                         default_ef=EF, cache_size=FAM_CACHE, scheduler_kw=dict(
+                             prewarm_capacity=1024, prewarm_ks=(K,),
+                             prewarm_widths=(64,)), device=device)
+    path.bank()
+    prompts = np.random.default_rng(seed + 601).integers(
+        0, 1 << 30, (RAG_Q, RAG_PROMPT)).astype(np.int64)
+    served_ids = np.stack([served4[i].ids for i in range(RAG_Q)])
+    served_scores = torch.as_tensor(np.stack(
+        [served4[i].scores for i in range(RAG_Q)]))
+    for i, name in enumerate(FAM_ARCHS):
+        t_fam = time.perf_counter()
+        cfg = get_config(name)
+        if cfg.family == "vlm":
+            cfg = dataclasses.replace(cfg, num_layers=FAM_VLM_LAYERS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # (a) the model: seeded random weights on the card
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator(
+            device=device).manual_seed(seed + 600 + i), device=device)
+        torch.cuda.synchronize()
+        fam = dict(arch=cfg.name, family=cfg.family, layers=cfg.num_layers,
+                   init_s=time.perf_counter() - t0,
+                   parameters=sum(p.numel() for p in params.parameters()),
+                   weight_bytes=sum(p.numel() * p.element_size()
+                                    for p in params.parameters()))
+        # (b) retrieval through the cached facade, then generation
+        pipe = RagPipeline(cfg, params, db=db, k=K, eps=eps, ef=EF)
+        retrieve, decode = pipe.retrieve, M.decode_step
+        walls: dict[str, float] = {}
+        step_ms: list[float] = []
+        step_logits: list = []
+
+        def timed_retrieve(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = retrieve(*a, **kw)
+            torch.cuda.synchronize()
+            walls["retrieve_s"] = time.perf_counter() - t
+            return res
+
+        def timed_decode(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = decode(*a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            step_logits.append(logits[:, 0])
+            return logits, cache
+
+        hits = db.stats()["cache_hits"]
+        pipe.retrieve = timed_retrieve
+        M.decode_step = timed_decode
+        try:
+            t0 = time.perf_counter()
+            tokens, ids, cert = pipe.generate(
+                qs_np[:RAG_Q], prompts % cfg.vocab_size, steps=FAM_STEPS)
+            generate_s = time.perf_counter() - t0
+        finally:
+            M.decode_step = decode
+            del pipe.retrieve
+        path.bank()
+        want_cert = np.array([bool(served4[i].stats.certified)
+                              for i in range(RAG_Q)])
+        if not (np.array_equal(ids, served_ids)
+                and np.array_equal(cert, want_cert)):
+            raise AssertionError(f"(b) {name}: retrieved {ids} certified="
+                                 f"{cert}, phase 4 served {served_ids} "
+                                 f"certified={want_cert}")
+        assert_results(torch, sim, graph.vectors, torch.as_tensor(
+            ids, device=device), served_scores, eps, f"(b) {name}")
+        if tokens.shape != (RAG_Q, FAM_STEPS) or not (
+                (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+            raise AssertionError(f"(b) {name} tokens {tokens.shape}: out "
+                                 "of range")
+        read = step_read_bytes(cfg, params, M.init_cache(
+            cfg, RAG_Q, RAG_PROMPT + FAM_STEPS + K, device="meta"))
+        median_ms = float(np.median(step_ms))
+        fam.update(
+            cache_hits=db.stats()["cache_hits"] - hits,
+            retrieve_s=walls["retrieve_s"],
+            qps=RAG_Q / walls["retrieve_s"], generate_s=generate_s,
+            decode_steps=len(step_ms), decode_ms_median=median_ms,
+            decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
+            decode_tokens_per_s=RAG_Q / (median_ms / 1e3),
+            generated_tokens_per_s=RAG_Q * FAM_STEPS / (
+                generate_s - walls["retrieve_s"]),
+            step_read_bytes=read,
+            step_read_bound_ms=read / PEAK_BYTES_PER_S * 1e3)
+        log(f"phase 12 {name} (a)-(b): retrieval equal to phase 4's served "
+            "results, every row diverse: " + json.dumps(fam))
+        # (d) 1. decode against forward along the served sequence
+        seq = torch.cat([torch.remainder(torch.as_tensor(
+            ids, dtype=torch.int64), cfg.vocab_size), torch.as_tensor(
+                prompts % cfg.vocab_size), torch.as_tensor(
+                    tokens, dtype=torch.int64)], dim=1).to(device)
+        dec = torch.stack(step_logits, dim=1)
+        del step_logits
+        fam["d_forward"] = decode_against_forward(
+            torch, M, cfg, params, seq, dec, seed + 620 + i, device)
+        del dec
+        log(f"phase 12 {name} (d) decode against forward: "
+            + json.dumps(fam["d_forward"]))
+        # (c) launches a decode step, the idle share, peak memory
+        fam["c_profile"] = decode_profile(torch, M, cfg, params, seq, device)
+        fam["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        path.drop()
+        log(f"phase 12 {name} (c) decode steps profiled: "
+            + json.dumps(fam["c_profile"]))
+        del pipe, params, retrieve
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (d) 2. the card against the plain CPU at the least depth
+        fam["d_cpu"] = card_against_cpu(torch, M, cfg, seq, seed + 610 + i,
+                                        device)
+        path.drop()
+        log(f"phase 12 {name} (d) card against the plain CPU: "
+            + json.dumps(fam["d_cpu"]))
+        fam["s"] = time.perf_counter() - t_fam
+        out["families"][name] = fam
+    report.setdefault("reduced", []).extend([
+        f"phase 12 runs llama-3.2-vision-90b at {FAM_VLM_LAYERS} of its 100 "
+        "layers (2 of 20 superblocks): 210 GB of bf16 weights do not fit "
+        "one 80 GB card",
+        f"phase 12 generates {FAM_STEPS} tokens a family, not phase 11's "
+        f"{RAG_STEPS}, and the card against the CPU over " + ", ".join(
+            f"{k} {v}" for k, v in FAM_CPU_STEPS.items()) + " steps: "
+        "phase 12 took 129.4 s at 16 and 2-4 over 200 000 rows (NVIDIA H100 "
+        "80GB HBM3, 700 W) against a budget of ~120 s"])
+    del db
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["path_s"] = time.perf_counter() - t_path
+    out["launches"] = dict(path.total)
+    missing = [k for k in PATH12_KERNELS if path.total[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the families' path: "
+                             f"{missing}")
+    report["families_path"] = out
+    log("phase 12: " + json.dumps({k: out[k] for k in ("path_s",
+                                                        "launches")}))
+    return path.total
+
+
 def launch_histogram(counts: dict, launches: dict, what: str) -> dict:
     """{kernel: {"lanes x width": launches}} from an engine's
     ``SignatureLog.counts``: each signature of a kind in SIG_KERNELS is one
@@ -3532,6 +3948,8 @@ def main() -> int:
                       served4, args.seed, device)
     rlaunches = phase("11", rag_path, torch, report, graph, qs_np, eps,
                       served4, args.seed, device)
+    falaunches = phase("12", families_path, torch, report, graph, qs_np,
+                       eps, served4, args.seed, device)
     elaunches = phase("8", elastic_path, torch, report, db6,
                       graph.vectors.cpu().numpy(), qs_np, eps, served6,
                       args.seed, device)
@@ -3557,12 +3975,13 @@ def main() -> int:
                         / prof["sim_gather_launches"]
                         if prof["sim_gather_launches"] else None)
     row["device_us_kept"] = prof["sim_gather_launches"]
-    # each kernel's launches over the eight paths' runs (each path's own
+    # each kernel's launches over the nine paths' runs (each path's own
     # counts are in chip_smoke.json)
     kernels = []
     for name, row in timings.items():
         total = (launches[name] + qlaunches[name] + slaunches[name]
-                 + flaunches[name] + rlaunches[name] + elaunches[name]
+                 + flaunches[name] + rlaunches[name] + falaunches[name]
+                 + elaunches[name]
                  + plaunches[name] + hlaunches[name])
         kernels.append(dict(row, launches=int(total)))
     report["kernels"] = kernels

@@ -37,6 +37,19 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, w.shape[-1])
 
 
+def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The batched ``x [E, C, K] @ w [E, K, N]``, accumulated and returned
+    in float32 (the reference's ``einsum`` over float32 upcasts): on the
+    card ``torch.bmm(..., out_dtype=float32)`` on the bf16 operands, so an
+    expert stack is read once as bf16 and never written out as float32; on
+    the CPU the plain version upcasts, as :func:`dot_f32` does."""
+    if x.dtype == F32 and w.dtype == F32:
+        return torch.bmm(x, w)
+    if x.is_cuda:
+        return torch.bmm(x, w, out_dtype=F32)
+    return torch.bmm(x.to(F32), w.to(F32))
+
+
 # ----------------------------------------------------------------- norms ---
 def rms_norm(x, scale, eps=1e-6):
     """RMS norm in float32; ``scale`` is an offset (the weight is
@@ -45,6 +58,16 @@ def rms_norm(x, scale, eps=1e-6):
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """Layer norm with a bias, in float32; the variance is the population
+    one (``jnp.var``), not torch's default unbiased estimate."""
+    xf = x.to(F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(x.dtype)
 
 
 # ------------------------------------------------------------------ rope ---

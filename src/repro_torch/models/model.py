@@ -1,4 +1,4 @@
-"""Model API over the ported architectures (port of ``repro.models.model``).
+"""Model API over all ten architectures (port of ``repro.models.model``).
 
     cfg = get_config("qwen2-1.5b")
     params = model.init_params(cfg, seed)         # or abstract_params(cfg)
@@ -6,15 +6,16 @@
     cache = model.init_cache(cfg, batch=8, max_seq=1024)
     logits, cache = model.decode_step(cfg, params, cache, token)
 
-``batch`` is a dict with tokens [B, S]. The decoder families go to
-``models.transformer`` (the dense family is ported); ``encdec`` raises
-``NotImplementedError`` (ROADMAP queue 1 G), as do ``loss_fn`` and
-``make_batch``, which wait for the training slice.
+``batch`` is a dict with tokens [B, S], and frontend_embeds [B, T, D] for
+the audio / vision archs (stubbed embeddings, as the reference's). The
+``encdec`` family goes to ``models.encdec``, the decoder families to
+``models.transformer``. ``loss_fn`` and ``make_batch`` wait for the
+training slice.
 
 :func:`from_host` / :func:`to_host` carry parameters between the packages:
-the reference's params pytree as numpy arrays (stacked ``[L, ...]`` block
-leaves; bf16 leaves are numpy arrays whose ``dtype.name`` is
-``"bfloat16"``) becomes the port's module tensor for tensor, bits kept.
+the reference's params pytree as numpy arrays (stacked block leaves; bf16
+leaves are numpy arrays whose ``dtype.name`` is ``"bfloat16"``) becomes the
+port's module tensor for tensor, bits kept.
 """
 from __future__ import annotations
 
@@ -24,15 +25,11 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"the 'encdec' family ({cfg.name}) is not ported yet: ROADMAP "
-            "queue 1 G; this slice ports the dense decoder")
-    return transformer
+    return encdec if cfg.family == "encdec" else transformer
 
 
 def init_params(cfg: ModelConfig, rng=0, device=None) -> nn.Module:
@@ -49,7 +46,11 @@ def needs_frontend(cfg: ModelConfig) -> bool:
 
 
 def forward(cfg: ModelConfig, params, batch):
-    return _mod(cfg).forward(cfg, params, batch["tokens"])
+    if cfg.family == "encdec":
+        return encdec.forward(cfg, params, batch["tokens"],
+                              frontend_embeds=batch["frontend_embeds"])
+    return transformer.forward(cfg, params, batch["tokens"],
+                               frontend_embeds=batch.get("frontend_embeds"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
@@ -94,25 +95,34 @@ def _array(t: torch.Tensor) -> np.ndarray:
         return bits
 
 
+def _stacked(cfg: ModelConfig) -> dict[str, int]:
+    """The reference's stacked subtrees and their number of stacked axes:
+    vlm's ``blocks`` [n_super, every, ...] have two, hybrid's ``blocks``
+    (``b{i}`` under a superblock axis) and every other stack one."""
+    if cfg.family == "encdec":
+        return {"enc_blocks": 1, "dec_blocks": 1}
+    return {"blocks": 2 if cfg.family == "vlm" else 1, "cross_blocks": 1}
+
+
 def from_host(cfg: ModelConfig, host_params: dict, device=None) -> nn.Module:
     """The port's parameters on ``device`` (``cuda`` unless given) from the
-    reference's params pytree as numpy arrays: each stacked ``blocks`` leaf
-    ``[L, ...]`` becomes layer i's parameter ``blocks.{i}.<path>``. Every
-    leaf must name a parameter of ``cfg``'s module with its shape and
-    dtype, and every parameter must be given. A bf16 parameter may also
-    come as its uint16 bits (what :func:`to_host` gives where numpy has no
-    ``bfloat16``)."""
+    reference's params pytree as numpy arrays: each stacked leaf (``blocks``
+    [L, ...], vlm's [n_super, every, ...], ``cross_blocks``, ``enc_blocks``,
+    ``dec_blocks``) becomes one parameter per index, ``blocks.{i}.<path>``
+    (``blocks.{s}.{j}.<path>``). Every leaf must name a parameter of
+    ``cfg``'s module with its shape and dtype, and every parameter must be
+    given. A bf16 parameter may also come as its uint16 bits (what
+    :func:`to_host` gives where numpy has no ``bfloat16``)."""
     device = resolve_device(device)
     module = abstract_params(cfg)
     want = dict(module.named_parameters())
+    stacked = _stacked(cfg)
     got = {}
     for path, leaf in _flatten(host_params):
         t = _tensor(leaf)
-        if path[0] == "blocks":
-            for i in range(t.shape[0]):
-                got[".".join(("blocks", str(i)) + path[1:])] = t[i]
-        else:
-            got[".".join(path)] = t
+        axes = stacked.get(path[0], 0)
+        for idx in np.ndindex(*t.shape[:axes]):
+            got[".".join((path[0], *map(str, idx)) + path[1:])] = t[idx]
     if set(got) != set(want):
         raise ValueError(
             f"params do not fit {cfg.name}: missing "
@@ -132,19 +142,27 @@ def from_host(cfg: ModelConfig, host_params: dict, device=None) -> nn.Module:
 
 
 def to_host(params: nn.Module) -> dict:
-    """The inverse of :func:`from_host`: the reference's params pytree, the
-    layers' parameters stacked on a leading axis."""
-    out: dict = {}
-    layers: dict[tuple, list] = {}
+    """The inverse of :func:`from_host`: the reference's params pytree, each
+    stack's parameters (the numeric names after its first key) stacked on
+    leading axes."""
+    stacks: dict[tuple, dict[tuple, np.ndarray]] = {}
     for name, p in params.named_parameters():
         path = tuple(name.split("."))
-        if path[0] == "blocks":
-            layers.setdefault(("blocks",) + path[2:], []).append(_array(p))
-            continue
-        out[path[0]] = _array(p)
-    for path, arrs in layers.items():
+        axes = 0
+        while path[1 + axes:] and path[1 + axes].isdigit():
+            axes += 1
+        key = (path[0],) + path[1 + axes:]
+        idx = tuple(int(i) for i in path[1:1 + axes])
+        stacks.setdefault(key, {})[idx] = _array(p)
+    out: dict = {}
+    for path, parts in stacks.items():
+        shape = tuple(max(i[a] for i in parts) + 1
+                      for a in range(len(next(iter(parts)))))
+        arr = (parts[()] if not shape else
+               np.stack([parts[i] for i in np.ndindex(*shape)]).reshape(
+                   shape + parts[(0,) * len(shape)].shape))
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(arrs)
+        node[path[-1]] = arr
     return out

@@ -43,9 +43,6 @@ from repro_torch.models import transformer as TT
 torch.set_num_threads(1)
 
 ARCHS = ("qwen2-1.5b", "gemma-2b", "qwen1.5-4b")
-DENSE = tuple(n for n in jconfigs.ARCH_NAMES
-              if jconfigs.get_config(n).family == "dense")
-UNPORTED = tuple(n for n in jconfigs.ARCH_NAMES if n not in DENSE)
 B, S, STEPS, MAX_SEQ = 2, 12, 9, 16
 BF16_RTOL = 2.0 ** -7        # one bf16 ulp of each value
 LOGIT_ULPS = 4               # bf16 ulps of the largest |logit|
@@ -326,35 +323,24 @@ def test_host_round_trip_is_bit_exact(arch):
                      device="cpu")
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", jconfigs.ARCH_NAMES)
 def test_abstract_params_full_width(name):
-    """Every dense arch at full width: the module on ``meta`` has the
-    reference's shapes and dtypes (per layer, the stacked leaf's)."""
-    ref = JM.abstract_params(jconfigs.get_config(name))
+    """Every arch at full width: the module on ``meta`` has the reference's
+    shapes and dtypes, one parameter per index of each stacked leaf
+    (vlm's ``blocks`` [n_super, every, ...] two indices)."""
+    cfg = jconfigs.get_config(name)
+    ref = JM.abstract_params(cfg)
+    stacked = TM._stacked(cfg)
     want = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]:
         keys = tuple(p.key for p in path)
-        if keys[0] == "blocks":
-            for i in range(leaf.shape[0]):
-                want[".".join(("blocks", str(i)) + keys[1:])] = (
-                    tuple(leaf.shape[1:]), leaf.dtype.name)
-        else:
-            want[".".join(keys)] = (tuple(leaf.shape), leaf.dtype.name)
+        axes = stacked.get(keys[0], 0)
+        for idx in np.ndindex(*leaf.shape[:axes]):
+            want[".".join((keys[0], *map(str, idx)) + keys[1:])] = (
+                tuple(leaf.shape[axes:]), leaf.dtype.name)
     module = TM.abstract_params(tconfigs.get_config(name))
     got = {n: (tuple(p.shape), str(p.dtype).removeprefix("torch."))
            for n, p in module.named_parameters()}
     assert got == want
     assert all(p.device.type == "meta" for p in module.parameters())
-    assert not TM.needs_frontend(tconfigs.get_config(name))
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_families_raise(name):
-    cfg = tconfigs.get_config(name).reduced()
-    for call in (lambda: TM.init_params(cfg, 0, device="cpu"),
-                 lambda: TM.abstract_params(cfg),
-                 lambda: TM.init_cache(cfg, 1, 4, device="cpu"),
-                 lambda: TM.forward(cfg, None, dict(tokens=np.zeros((1, 2)))),
-                 lambda: TM.decode_step(cfg, None, {}, np.zeros((1, 1)))):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 G"):
-            call()
+    assert TM.needs_frontend(cfg) == (cfg.family in ("vlm", "encdec"))
