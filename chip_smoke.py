@@ -260,6 +260,33 @@ Phases:
    8. Phase 12 must launch what phase 11 does (its retrieval);
    ``tools/torch_rag_path.py --phase12`` runs phases 4 and 12 alone.
 
+13. Training (run after phase 12, once its models are freed; the bytes
+   still allocated are printed first). (a) qwen2-1.5b at full width and
+   depth (28 layers, bf16 weights from the port's seeded init) trained 12
+   steps by ``train.loop.train`` at the launcher's batch and sequence
+   (B = 16, S = 64), AdamW at ``cosine_schedule(3e-3, 1, 12)``, remat on:
+   every loss finite and the first within 0.5 of ln(151 936); ms a step
+   (the median of steps 3-12), tokens/s, launches a step and the device's
+   busy time and idle share over 2 profiled steps, the peak allocated
+   bytes, beside the step's bound: the matmul FLOPs (6 x the matmul
+   parameters x tokens, 2 x more for the remat forward, and the
+   attention's 9 block products of 2 B H S^2 hd each) over the bf16 dense
+   peak, plus the AdamW update's bytes (parameter read and write, gradient
+   read, float32 mu / nu read and write) over 3.35 TB/s. (b) One step at
+   B = 2, S = 4 096 (finite loss, peak bytes), and the flash Function's
+   dq / dk / dv against the one-block attention's on 2 full-width layers'
+   q / k / v at S = 2 048. (c) One ``build_train_step`` step at 2 layers
+   of the full width (B = 2, S = 64) and at moonshot's reduced config
+   (``moe_impl="einsum"``, the card's routes replayed on the CPU), the
+   card against the plain CPU on the same parameters and batch. (d) The
+   loop's contract at the reduced config: the loss falls over 25 steps, a
+   fault at step 12 restarts once and replays bit for bit under
+   ``torch.use_deterministic_algorithms(True)``, mamba2 resumes (6 then 8
+   steps, 3 run), and ``launch.train.main`` exits 0; its checkpoints go to
+   a temporary directory, deleted afterwards. No kernel of
+   ``kernels/csrc`` is on the training path (the JAX LM has no Pallas
+   kernel): phase 13 counts 0 launches of each.
+
 Each phase's wall is logged on a line of its own and kept under
 ``phase_walls_s`` in chiprun_out/chip_smoke.json, beside the script's.
 
@@ -427,6 +454,37 @@ FAM_CHECK_DEPTH = {"moe": dict(num_layers=2), "ssm": dict(num_layers=2),
                    "vlm": dict(num_layers=5)}
 FAM_CPU_STEPS = {"moe": 2, "ssm": 4, "hybrid": 2, "encdec": 4, "vlm": 1}
 PATH12_KERNELS = PATH11_KERNELS
+# phase 13: training. (a) the launcher's arch at full width and depth
+# through train.loop.train, the launcher's batch and sequence, AdamW at
+# cosine_schedule(3e-3, 1, 12), TRAIN_PROFILE_AT the first of 2 profiled
+# steps; the first loss within TRAIN_LOSS0_TOL of ln(vocab). (b) one step
+# of the train_4k shape card's length (src/repro/configs/base.py:98) at
+# B = 2, and the flash Function against the one-block attention at
+# Sq = Sk = TRAIN_FLASH_SEQ (above chunk_k) on the q / k / v of
+# TRAIN_CHECK_LAYERS full-width layers: in float32 within TRAIN_FLASH_TOL of
+# each gradient's largest |entry|, and on the layers' bf16 within
+# TRAIN_FLASH_ULPS bf16 ulps of it (each repeated kv head's dk / dv is
+# rounded to bf16 before the repeat's sum, the one-block's once). (c) one
+# build_train_step step at TRAIN_CHECK_LAYERS layers of the full width and
+# at moonshot's reduced config (einsum dispatch), the card against the
+# plain CPU: the loss at TRAIN_LOSS_RTOL, every gradient leaf within
+# TRAIN_GRAD_ULPS bf16 ulps of its largest |entry|, and the updated
+# parameters equal but for TRAIN_FLIP_SHARE of 1-ulp flips and the entries
+# whose gradient lies within that tolerance of zero; a float32 leaf (the
+# norm offsets, the router) within TRAIN_F32_PARAM_RTOL of its largest
+# |value| outside those entries: its first update, lr * m / (sqrt(v) +
+# eps), carries the gradients' own gap through the eps term. (d) the loop's
+# contract at the reduced config, as tests/test_train.py:93-134 holds the
+# reference's.
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_B, TRAIN_S = "qwen2-1.5b", 12, 16, 64
+TRAIN_PROFILE_AT, TRAIN_LOSS0_TOL = 9, 0.5
+TRAIN_LONG_B, TRAIN_LONG_S = 2, 4096
+TRAIN_FLASH_SEQ, TRAIN_CHECK_LAYERS = 2048, 2
+TRAIN_FLASH_TOL, TRAIN_FLASH_ULPS = 1e-5, 8
+TRAIN_CPU_B, TRAIN_CPU_S = 2, 64
+TRAIN_LOSS_RTOL, TRAIN_GRAD_ULPS, TRAIN_FLIP_SHARE = 1e-4, 8, 0.01
+TRAIN_F32_PARAM_RTOL = 1e-4
+PEAK_BF16_FLOP_S = 989e12    # H100 SXM bf16 tensor cores, dense
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
@@ -3765,6 +3823,378 @@ def families_path(torch, report, graph, qs_np, eps, served4, seed, device):
     return path.total
 
 
+# ------------------------------------------------------------ phase 13 ----
+
+def train_step_bound(cfg, batch: int, seq: int, params) -> dict:
+    """The least time of one training step at (batch, seq): the matmul
+    FLOPs over the bf16 dense peak plus the AdamW update's bytes over the
+    memory rate. FLOPs: 6 x the matmul parameters (every block's
+    projections and MLP, and the [D, V] head) x tokens for the forward and
+    backward, 2 x more for the remat forward, and per layer the
+    attention's 9 block products (2 forward, 2 recomputed, 5 in the
+    backward) of 2 B H S^2 hd each. Bytes: each parameter read and written
+    in its dtype, its gradient read, its float32 mu and nu read and
+    written."""
+    tokens = batch * seq
+    matmul = sum(p.numel() for name, p in params.named_parameters()
+                 if p.dim() == 2 and name != "embed")
+    matmul += cfg.d_model * cfg.vocab_size               # the head
+    attn = (cfg.num_layers * 9 * 2 * batch * cfg.num_heads * seq * seq
+            * cfg.resolved_head_dim)
+    flops = 8 * matmul * tokens + attn
+    update = sum(p.numel() * (3 * p.element_size() + 16)
+                 for p in params.parameters())
+    return dict(flops=flops, matmul_parameters=matmul, update_bytes=update,
+                flops_ms=flops / PEAK_BF16_FLOP_S * 1e3,
+                update_ms=update / PEAK_BYTES_PER_S * 1e3,
+                bound_ms=(flops / PEAK_BF16_FLOP_S
+                          + update / PEAK_BYTES_PER_S) * 1e3)
+
+
+def bf16_ulp(top: float) -> float:
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def step_card_against_cpu(torch, M, steps_mod, opt_mod, cfg, params, batch,
+                          opts, what) -> dict:
+    """One ``build_train_step`` step of ``params`` (on the card) and of a
+    CPU copy on the same batch: the loss at TRAIN_LOSS_RTOL, every
+    gradient leaf within TRAIN_GRAD_ULPS bf16 ulps of its largest |entry|,
+    the updated parameters equal but for TRAIN_FLIP_SHARE of 1-ulp flips
+    and the entries whose gradient lies within that tolerance of zero. The
+    moe routes the card took are replayed on the CPU (RouteLog)."""
+    from repro_torch.models import moe
+
+    class Recording(opt_mod.AdamW):
+        """AdamW that keeps the gradients ``build_train_step`` hands it."""
+
+        def update(self, grads, state, params):
+            object.__setattr__(self, "grads", {
+                n: g.detach().clone() for n, g in grads.items()})
+            return super().update(grads, state, params)
+
+    device = next(params.parameters()).device
+    cpu = M.from_host(cfg, M.stack(params.named_parameters()), device="cpu")
+    out = {}
+    with RouteLog(moe) as routes:
+        res = {}
+        for side, p in (("card", params), ("cpu", cpu)):
+            if side == "cpu":
+                routes.replay = list(routes.log)
+            opt = Recording(lr=opt_mod.cosine_schedule(3e-3, 1, 12))
+            step, _ = steps_mod.build_train_step(cfg, None, optimizer=opt,
+                                                 opts=opts)
+            t0 = time.perf_counter()
+            p, _, loss = step(p, opt.init(p), batch)
+            res[side] = (float(loss), opt.grads, dict(p.named_parameters()))
+            out[f"{side}_s"] = time.perf_counter() - t0
+        out["route_flips"], out["routes"] = routes.flips, routes.routes
+    (got_loss, got_g, got_p), (want_loss, want_g, want_p) = (res["card"],
+                                                             res["cpu"])
+    out["loss_card"], out["loss_cpu"] = got_loss, want_loss
+    if not abs(got_loss - want_loss) <= TRAIN_LOSS_RTOL * abs(want_loss):
+        raise AssertionError(f"{what}: loss {got_loss} on the card, "
+                             f"{want_loss} on the CPU")
+    worst_ulps, flips, either, moved, total = 0.0, 0, 0, 0, 0
+    for name, want in want_g.items():
+        want = want.to(device).float()
+        ulp = bf16_ulp(float(want.abs().max()))
+        gap = float((got_g[name].float() - want).abs().max())
+        if ulp:
+            worst_ulps = max(worst_ulps, gap / ulp)
+        tol = TRAIN_GRAD_ULPS * ulp
+        if not gap <= tol:
+            raise AssertionError(f"{what}: gradient {name} {gap} from the "
+                                 f"CPU's, tolerance {tol}")
+        a = got_p[name].detach().float()
+        b = want_p[name].detach().to(device).float()
+        diff = (a - b).abs()
+        total += diff.numel()
+        free = want.abs() <= tol
+        either += int(free.sum())
+        if want_p[name].dtype == torch.float32:
+            top = float(b.abs().max())
+            gap = float(torch.where(free, 0.0, diff).max()) / max(top, 1e-30)
+            out["f32_param_worst"] = max(out.get("f32_param_worst", 0.0),
+                                         gap)
+            if not gap <= TRAIN_F32_PARAM_RTOL:
+                raise AssertionError(f"{what}: float32 parameter {name} "
+                                     f"{gap} from the CPU's update")
+            continue
+        one = torch.exp2(torch.floor(torch.log2(b.abs().clamp(
+            min=1e-30))) - 7)                 # one bf16 ulp at |b|
+        if not bool(((diff <= one) | free).all()):
+            raise AssertionError(f"{what}: parameter {name} moved more than "
+                                 "one ulp from the CPU's update")
+        moved += int(((diff > one) & free).sum())
+        flips += int(((diff > 0) & ~free).sum())
+    # either_sign: entries whose gradient lies within the tolerance of zero
+    # (most are an embedding row the batch does not read, 0 on both);
+    # either_sign_moved: those of them whose update differs by more than
+    # one bf16 ulp
+    out.update(grad_worst_bf16_ulps=worst_ulps, param_flips=flips,
+               param_flip_share=flips / total, either_sign=either,
+               either_sign_moved=moved, parameters=total)
+    if flips > TRAIN_FLIP_SHARE * total:
+        raise AssertionError(f"{what}: {flips} of {total} parameters differ "
+                             "by one ulp")
+    return out
+
+
+def flash_against_one_block(torch, L, qkv, seed) -> dict:
+    """dq / dk / dv of the flash Function against the one-block
+    attention's, on each captured layer's q / k / v (causal), in float32
+    and in the layers' bf16."""
+    gen = torch.Generator(device=qkv[0][0].device).manual_seed(seed)
+    out = {"f32_worst": 0.0, "bf16_worst_ulps": 0.0}
+    for q, k, v in qkv:
+        dout = torch.randn(q.shape, generator=gen, device=q.device)
+        for dtype in (torch.float32, q.dtype):
+            grads = []
+            for fn in (L.flash_attention, L.attention_one_block):
+                xs = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+                o = fn(*xs, causal=True)
+                grads.append(torch.autograd.grad(o, xs, dout.to(dtype)))
+            for got, want in zip(*grads):
+                top = float(want.float().abs().max())
+                gap = float((got.float() - want.float()).abs().max())
+                if dtype == torch.float32:
+                    out["f32_worst"] = max(out["f32_worst"], gap / top)
+                else:
+                    out["bf16_worst_ulps"] = max(out["bf16_worst_ulps"],
+                                                 gap / bf16_ulp(top))
+    if not (out["f32_worst"] <= TRAIN_FLASH_TOL
+            and out["bf16_worst_ulps"] <= TRAIN_FLASH_ULPS):
+        raise AssertionError(f"(b) flash against one block: {out}")
+    return out
+
+
+def train_path(torch, report, seed, device):
+    """Phase 13: training (see the module docstring). Returns the path's
+    launches of every kernel (none is on it)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.loop import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {"allocated_before_bytes": torch.cuda.memory_allocated()}
+    log(f"phase 13: {out['allocated_before_bytes']} bytes allocated before "
+        "it starts")
+    t_path = time.perf_counter()
+    path = PathLaunches(ops)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cfg = get_config(TRAIN_ARCH)
+    try:
+        # (a) full width and depth through the loop
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        marks: dict = {}
+
+        def hook(step):
+            if step == TRAIN_PROFILE_AT:
+                prof.start()
+                marks["t"] = time.perf_counter()
+            elif step == TRAIN_PROFILE_AT + 2:
+                torch.cuda.synchronize()
+                marks["wall"] = time.perf_counter() - marks["t"]
+                prof.stop()
+
+        t0 = time.perf_counter()
+        rep = train(cfg, None, steps=TRAIN_STEPS, global_batch=TRAIN_B,
+                    seq_len=TRAIN_S, ckpt_dir=os.path.join(tmp, "a"),
+                    ckpt_every=0, seed=seed, fault_hook=hook, log_every=0,
+                    optimizer=opt_mod.AdamW(lr=opt_mod.cosine_schedule(
+                        3e-3, 1, TRAIN_STEPS)), device=device)
+        a = dict(arch=cfg.name, layers=cfg.num_layers, steps=rep.steps_run,
+                 run_s=time.perf_counter() - t0, losses=rep.losses,
+                 step_s=rep.step_s,
+                 peak_allocated_bytes=torch.cuda.max_memory_allocated())
+        path.bank()
+        ln_v = math.log(cfg.vocab_size)
+        if not (rep.steps_run == TRAIN_STEPS
+                and all(math.isfinite(x) for x in rep.losses)
+                and abs(rep.losses[0] - ln_v) <= TRAIN_LOSS0_TOL):
+            raise AssertionError(f"(a) losses {rep.losses}: not all finite, "
+                                 f"or the first not within {TRAIN_LOSS0_TOL} "
+                                 f"of ln(V) = {ln_v}")
+        kernels = device_events(torch, prof)
+        busy = sum(dur for _, dur in kernels) / 1e6
+        by_name: dict = {}
+        for name, dur in kernels:
+            by_name[name] = by_name.get(name, 0.0) + dur
+        median_ms = float(np.median(rep.step_s[2:TRAIN_STEPS])) * 1e3
+        bound = train_step_bound(cfg, TRAIN_B, TRAIN_S,
+                                 M.abstract_params(cfg))
+        a.update(ms_per_step=median_ms,
+                 tokens_per_s=TRAIN_B * TRAIN_S / (median_ms / 1e3),
+                 profiled_steps=2, profiled_wall_s=marks["wall"],
+                 launches_per_step=len(kernels) / 2,
+                 device_busy_s_per_step=busy / 2,
+                 device_idle_share=1.0 - busy / marks["wall"],
+                 top_kernels_s=[(n[:80], us / 1e6) for n, us in sorted(
+                     by_name.items(), key=lambda kv: -kv[1])[:6]],
+                 bound=bound, ms_over_bound=median_ms / bound["bound_ms"])
+        out["a"] = a
+        log("phase 13 (a) losses: " + json.dumps(rep.losses))
+        log("phase 13 (a) " + json.dumps(
+            {k: v for k, v in a.items() if k not in ("losses", "step_s")}))
+        del rep, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) a long sequence through the flash VJP
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rep = train(cfg, None, steps=1, global_batch=TRAIN_LONG_B,
+                    seq_len=TRAIN_LONG_S, ckpt_dir=os.path.join(tmp, "b"),
+                    ckpt_every=0, seed=seed, log_every=0,
+                    optimizer=opt_mod.AdamW(lr=opt_mod.cosine_schedule(
+                        3e-3, 1, TRAIN_STEPS)), device=device)
+        b = dict(batch=TRAIN_LONG_B, seq=TRAIN_LONG_S, loss=rep.losses[0],
+                 step_s=rep.step_s[0], run_s=time.perf_counter() - t0,
+                 peak_allocated_bytes=torch.cuda.max_memory_allocated())
+        path.bank()
+        if not math.isfinite(rep.losses[0]):
+            raise AssertionError(f"(b) loss {rep.losses[0]} at S = "
+                                 f"{TRAIN_LONG_S}")
+        del rep
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS)
+        params = M.init_params(cfg2, torch.Generator(device=device)
+                               .manual_seed(seed + 700), device=device)
+        qkv = []
+        real = L.attention
+
+        def capture(q, k, v, **kw):
+            qkv.append((q.detach(), k.detach(), v.detach()))
+            return real(q, k, v, **kw)
+
+        toks = torch.as_tensor(SyntheticLM(cfg.vocab_size, TRAIN_FLASH_SEQ, 1,
+                                           seed=seed).batch_at(0)["tokens"])
+        L.attention = capture
+        try:
+            with torch.no_grad():
+                M.forward(cfg2, params, dict(tokens=toks), remat=False)
+        finally:
+            L.attention = real
+        b["flash"] = flash_against_one_block(torch, L, qkv, seed + 701)
+        path.drop()
+        out["b"] = b
+        log("phase 13 (b) " + json.dumps(b))
+        del qkv
+
+        # (c) the card against the CPU
+        batch = SyntheticLM(cfg.vocab_size, TRAIN_CPU_S, TRAIN_CPU_B,
+                            seed=seed).batch_at(0)
+        c = {"dense": step_card_against_cpu(
+            torch, M, steps_mod, opt_mod, cfg2, params, batch, None,
+            f"(c) {cfg.name} at {TRAIN_CHECK_LAYERS} layers")}
+        del params
+        mcfg = get_config("moonshot-v1-16b-a3b").reduced()
+        mparams = M.init_params(mcfg, torch.Generator(device=device)
+                                .manual_seed(seed + 702), device=device)
+        mbatch = SyntheticLM(mcfg.vocab_size, TRAIN_CPU_S, TRAIN_CPU_B,
+                             seed=seed).batch_at(0)
+        c["moe_einsum"] = step_card_against_cpu(
+            torch, M, steps_mod, opt_mod, mcfg, mparams, mbatch,
+            {"moe_impl": "einsum"}, f"(c) {mcfg.name} reduced, einsum")
+        path.drop()
+        out["c"] = c
+        log("phase 13 (c) card against the plain CPU: " + json.dumps(c))
+        del mparams
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the loop's contract at the reduced config
+        d = {}
+        rcfg = get_config(TRAIN_ARCH).reduced()
+        rep = train(rcfg, None, steps=25, global_batch=8, seq_len=16,
+                    ckpt_dir=os.path.join(tmp, "d1"), ckpt_every=10,
+                    log_every=0, optimizer=opt_mod.AdamW(lr=3e-3),
+                    device=device)
+        d["first5"] = float(np.mean(rep.losses[:5]))
+        d["last5"] = float(np.mean(rep.losses[-5:]))
+        if not d["last5"] < d["first5"]:
+            raise AssertionError(f"(d) the loss did not fall: {rep.losses}")
+        crashed = {"done": False}
+
+        def fault(step):
+            if step == 12 and not crashed["done"]:
+                crashed["done"] = True
+                raise RuntimeError("injected node failure")
+
+        # torch's deterministic mode refuses cuBLAS unless this names a
+        # fixed workspace; 8 buffers of 4 MiB are what it uses on sm_90
+        # by default, so the products are the same
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        try:
+            runs = [train(rcfg, None, steps=18, global_batch=8, seq_len=16,
+                          ckpt_dir=os.path.join(tmp, name), ckpt_every=5,
+                          log_every=0, fault_hook=hook_, device=device)
+                    for name, hook_ in (("d2", fault), ("d3", None))]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        faulted, clean = runs
+        d["restarts"] = faulted.restarts
+        d["replay_bit_equal"] = (faulted.losses[:12] == clean.losses[:12]
+                                 and faulted.losses[12:] == clean.losses[10:])
+        if faulted.restarts != 1 or not d["replay_bit_equal"]:
+            raise AssertionError(f"(d) fault restart: {faulted.restarts} "
+                                 f"restarts, losses {faulted.losses} against "
+                                 f"{clean.losses}")
+        scfg = get_config("mamba2-370m").reduced()
+        train(scfg, None, steps=6, global_batch=4, seq_len=8,
+              ckpt_dir=os.path.join(tmp, "d4"), ckpt_every=5, log_every=0,
+              device=device)
+        rep = train(scfg, None, steps=8, global_batch=4, seq_len=8,
+                    ckpt_dir=os.path.join(tmp, "d4"), ckpt_every=5,
+                    log_every=0, device=device)
+        d["resumed_steps_run"] = rep.steps_run
+        if rep.steps_run != 3:
+            raise AssertionError(f"(d) resume ran {rep.steps_run} steps")
+        d["launcher_rc"] = launcher.main([
+            "--steps", "6", "--ckpt", os.path.join(tmp, "d5"),
+            "--device", "cuda"])
+        if d["launcher_rc"] != 0:
+            raise AssertionError(f"(d) launch.train.main: {d['launcher_rc']}")
+        path.bank()
+        out["d"] = d
+        log("phase 13 (d) loop contract: " + json.dumps(d))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["path_s"] = time.perf_counter() - t_path
+    out["launches"] = dict(path.total)
+    if any(path.total.values()):
+        raise AssertionError("phase 13 launched a search kernel: "
+                             + json.dumps(path.total))
+    report.setdefault("reduced", []).append(
+        f"phase 13 holds the card against the CPU (c) and the flash Function "
+        f"against the one-block attention (b) at {TRAIN_CHECK_LAYERS} of "
+        f"{cfg.name}'s {cfg.num_layers} layers (full width); (a) and the "
+        f"{TRAIN_LONG_S}-token step run all of them")
+    report["train_path"] = out
+    log("phase 13: " + json.dumps({k: out[k] for k in ("path_s",
+                                                        "launches")}))
+    return path.total
+
+
 def launch_histogram(counts: dict, launches: dict, what: str) -> dict:
     """{kernel: {"lanes x width": launches}} from an engine's
     ``SignatureLog.counts``: each signature of a kind in SIG_KERNELS is one
@@ -3950,6 +4380,7 @@ def main() -> int:
                       served4, args.seed, device)
     falaunches = phase("12", families_path, torch, report, graph, qs_np,
                        eps, served4, args.seed, device)
+    tlaunches = phase("13", train_path, torch, report, args.seed, device)
     elaunches = phase("8", elastic_path, torch, report, db6,
                       graph.vectors.cpu().numpy(), qs_np, eps, served6,
                       args.seed, device)
@@ -3975,13 +4406,13 @@ def main() -> int:
                         / prof["sim_gather_launches"]
                         if prof["sim_gather_launches"] else None)
     row["device_us_kept"] = prof["sim_gather_launches"]
-    # each kernel's launches over the nine paths' runs (each path's own
+    # each kernel's launches over the ten paths' runs (each path's own
     # counts are in chip_smoke.json)
     kernels = []
     for name, row in timings.items():
         total = (launches[name] + qlaunches[name] + slaunches[name]
                  + flaunches[name] + rlaunches[name] + falaunches[name]
-                 + elaunches[name]
+                 + tlaunches[name] + elaunches[name]
                  + plaunches[name] + hlaunches[name])
         kernels.append(dict(row, launches=int(total)))
     report["kernels"] = kernels

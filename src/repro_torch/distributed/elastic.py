@@ -66,5 +66,5 @@ def reshard_tree(tree: Any, new_mesh=None, cfg=None, spec_fn=None, *,
                                      axis=axis)
     del cfg, spec_fn
     raise NotImplementedError(
-        "resharding a model-parameter tree needs the training stack's "
-        "sharding rules, which are not ported yet — ROADMAP queue 1 G")
+        "resharding a model-parameter tree needs sharding rules over a "
+        "process-group mesh, which are not ported yet — ROADMAP queue 1 D")

@@ -14,6 +14,10 @@ after ``enc_blocks`` / ``dec_blocks``.
 ``decode_step`` reads the cross-attention's k / v from the cache
 (``cross_k`` / ``cross_v`` [L, B, T, KV, hd]); ``init_cache`` makes them
 zeros, and the RAG pipeline never fills them, as the reference's does not.
+
+Training recomputes every encoder block in the backward (the reference
+checkpoints them always) and, with ``forward(remat=True)``, every decoder
+block.
 """
 from __future__ import annotations
 
@@ -25,8 +29,8 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (DenseMLP, _Init, make_init,
-                                            torch_dtype)
+from repro_torch.models.transformer import (DenseMLP, _Init, _remat,
+                                            make_init, torch_dtype)
 
 F32 = torch.float32
 POSITIONS = 4096          # the learned decoder positions
@@ -156,11 +160,16 @@ def encode(cfg: ModelConfig, params: EncDecLM, frames):
     frames = torch.as_tensor(frames, device=params.device)
     x = frames.to(dt) + sinusoids(frames.shape[1], cfg.d_model,
                                   params.device).to(dt)[None]
-    for p in params.enc_blocks:
+
+    def blk(x, p):
         h = _ln(p.ln1, x)
         x = x + _mha(p.attn, h, h, cfg, causal=False)
         h = _ln(p.ln2, x)
-        x = x + L.dense_mlp(p.mlp, h, "gelu")
+        return x + L.dense_mlp(p.mlp, h, "gelu")
+
+    blk = _remat(blk, True, params)
+    for p in params.enc_blocks:
+        x = blk(x, p)
     return _ln(params.enc_ln, x)
 
 
@@ -169,7 +178,8 @@ def _logits(params: EncDecLM, x):
     return L.dot_f32(x, params.embed.t())
 
 
-def forward(cfg: ModelConfig, params: EncDecLM, tokens, *, frontend_embeds):
+def forward(cfg: ModelConfig, params: EncDecLM, tokens, *, frontend_embeds,
+            remat: bool = True):
     """Teacher-forced decoder logits. tokens [B, S]; frontend [B, T, D] ->
     (logits [B, S, V] float32, 0.0)."""
     enc = encode(cfg, params, frontend_embeds)
@@ -179,13 +189,18 @@ def forward(cfg: ModelConfig, params: EncDecLM, tokens, *, frontend_embeds):
     if s > pos.shape[0]:      # learned positions tiled past their length
         pos = pos.repeat(math.ceil(s / pos.shape[0]), 1)
     x = params.embed[tokens].to(torch_dtype(cfg)) + pos[:s][None]
-    for p in params.dec_blocks:
+
+    def blk(x, p):
         h = _ln(p.ln1, x)
         x = x + _mha(p.self_attn, h, h, cfg, causal=True)
         h = _ln(p.ln2, x)
         x = x + _mha(p.cross_attn, h, enc, cfg, causal=False)
         h = _ln(p.ln3, x)
-        x = x + L.dense_mlp(p.mlp, h, "gelu")
+        return x + L.dense_mlp(p.mlp, h, "gelu")
+
+    blk = _remat(blk, remat, params)
+    for p in params.dec_blocks:
+        x = blk(x, p)
     return _logits(params, x), 0.0
 
 

@@ -5,8 +5,9 @@ reference's take a params pytree. Matmuls accumulate in float32 and round
 once, as the reference's ``jnp.dot(..., preferred_element_type=F32)``
 (:func:`dot_f32`). Attention is computed with plain torch ops, float32
 scores and a float32 softmax, as the reference's is (outside any Pallas
-kernel): ``attention`` is the prefill attention ``flash_attention``
-computes, ``decode_attention`` the single-token one over a KV cache.
+kernel): ``attention`` is :func:`flash_attention`, the chunked prefill and
+training attention whose backward recomputes each score block,
+``decode_attention`` the single-token one over a KV cache.
 """
 from __future__ import annotations
 
@@ -17,6 +18,40 @@ F32 = torch.float32
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 
+class _ProductF32(torch.autograd.Function):
+    """``x @ w`` of two bf16 (or fp16) operands on the card, as cuBLAS's
+    ``mm`` / ``bmm(..., out_dtype=float32)``: a float32 accumulator and
+    output, which autograd cannot differentiate. The backward takes the
+    reference's products: its float32 cotangent against the other operand,
+    in float32, rounded once to the operand's dtype. On the tensor cores
+    the cotangent is split into a bf16 head and the bf16 rounding of its
+    remainder, two products whose float32 sum carries it to within about
+    2^-17 of itself (one bf16 rounding would lose 2^-9)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm(x, w, F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        hi = g.to(x.dtype)
+        lo = (g - hi.to(F32)).to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = w.mT
+            dx = (_mm(hi, wt, F32) + _mm(lo, wt, F32)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            xt = x.mT
+            dw = (_mm(xt, hi, F32) + _mm(xt, lo, F32)).to(w.dtype)
+        return dx, dw
+
+
+def _mm(a, b, out_dtype):
+    return (torch.mm if a.dim() == 2 else torch.bmm)(a, b, out_dtype=out_dtype)
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [..., K] @ w [K, N]`` accumulated and returned in float32.
 
@@ -24,14 +59,15 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (cuBLAS with a float32 accumulator and output; the package turns off
     cuBLAS's reduced-precision bf16 reduction), so the weights stay bf16 in
     memory and nothing is rounded to bf16 before the caller's bias or
-    activation. On the CPU, where that overload is not registered, the
-    plain version upcasts both operands."""
+    activation; :class:`_ProductF32` differentiates it. On the CPU, where
+    that overload is not registered, and for operands of two dtypes, the
+    plain version upcasts both."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype == F32 and w.dtype == F32:
         out = x2 @ w
-    elif x2.is_cuda:
-        out = torch.mm(x2, w, out_dtype=F32)
+    elif x2.is_cuda and x2.dtype == w.dtype:
+        out = _ProductF32.apply(x2, w)
     else:
         out = x2.to(F32) @ w.to(F32)
     return out.reshape(*lead, w.shape[-1])
@@ -45,8 +81,8 @@ def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the CPU the plain version upcasts, as :func:`dot_f32` does."""
     if x.dtype == F32 and w.dtype == F32:
         return torch.bmm(x, w)
-    if x.is_cuda:
-        return torch.bmm(x, w, out_dtype=F32)
+    if x.is_cuda and x.dtype == w.dtype:
+        return _ProductF32.apply(x, w)
     return torch.bmm(x.to(F32), w.to(F32))
 
 
@@ -120,37 +156,210 @@ def dense_mlp(params, x, act: str = "gelu"):
     return o.to(x.dtype)
 
 
-# ------------------------------------------------------------- attention ---
-def attention(q, k, v, q_offset: int = 0, causal: bool = True,
-              window: int = 0):
-    """Prefill attention: q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd].
-
-    What ``flash_attention`` computes, in one block: GQA by grouping the H
-    query heads into KV groups of G = H // KV, the query at row i sits at
-    position ``q_offset + i``, ``causal`` keeps keys at or before it and
-    ``window > 0`` only the last ``window`` of them. Float32 scores, the
-    row maximum subtracted, the unnormalised sum of ``exp`` against v, then
-    one division by the row sum, as the reference's online softmax over a
-    single chunk. The score matrix is [B, KV, G, Sq, Sk]."""
-    b, sq, h, hd = q.shape
-    _, sk, kvh, _ = k.shape
-    g = h // kvh
-    scale = 1.0 / float(hd) ** 0.5      # a Python float, as the reference's
-    qg = q.reshape(b, sq, kvh, g, hd)
-    s = torch.einsum("bqkgh,bckh->bkgqc", qg.to(F32), k.to(F32)) * scale
-    q_pos = q_offset + torch.arange(sq, device=q.device)
-    k_pos = torch.arange(sk, device=q.device)
-    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+# ------------------------------------------------------- flash attention ---
+def _block_mask(q_pos, k_pos, sk_valid: int, causal: bool, window: int):
+    """[cq, ck] bool, True = keep: keys past ``sk_valid`` (padding), after
+    the query (``causal``) or ``window`` or more behind it are masked."""
+    mask = k_pos[None, :] < sk_valid
     if causal:
         mask = mask & (k_pos[None, :] <= q_pos[:, None])
     if window:
         mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-    s = torch.where(mask, s, NEG_INF)
+    return mask
+
+
+class _Geometry:
+    """The static chunking of one flash call: chunk sizes, chunk counts,
+    the valid key length and the masks' parameters. ``blocks(qi)`` are the
+    kv chunks a q chunk visits: a chunk wholly after the chunk's last query
+    (``causal``) or wholly ``window`` or more behind its first is skipped.
+    A skipped chunk changes no result: its exp scores are exactly 0 against
+    a real row maximum, and what it adds before one (its keys' exp(0) = 1
+    terms) is scaled by exp(-inf) = 0 when the row meets its first kept
+    key, in the reference's online softmax as here. ``mask(qi, ki)`` is None
+    where every key of the block is kept."""
+
+    def __init__(self, causal, window, cq, ck, nq, nk, q_offset, sk_valid):
+        self.causal, self.window = causal, window
+        self.cq, self.ck, self.nq, self.nk = cq, ck, nq, nk
+        self.q_offset, self.sk_valid = q_offset, sk_valid
+
+    def blocks(self, qi: int) -> range:
+        q_lo = self.q_offset + qi * self.cq
+        q_hi = q_lo + self.cq - 1
+        hi = self.nk
+        if self.causal:
+            hi = min(hi, q_hi // self.ck + 1)
+        lo = 0
+        if self.window:
+            lo = min(max(0, (q_lo - self.window) // self.ck), hi)
+        return range(lo, hi)
+
+    def mask(self, qi: int, ki: int, device):
+        q_lo = self.q_offset + qi * self.cq
+        q_hi = q_lo + self.cq - 1
+        k_lo, k_hi = ki * self.ck, (ki + 1) * self.ck - 1
+        if (k_hi < self.sk_valid and not (self.causal and k_hi > q_lo)
+                and not (self.window and k_lo <= q_hi - self.window)):
+            return None
+        q_pos = q_lo + torch.arange(self.cq, device=device)
+        k_pos = k_lo + torch.arange(self.ck, device=device)
+        return _block_mask(q_pos, k_pos, self.sk_valid, self.causal,
+                           self.window)
+
+
+def _scores(qb, kb, mask, scale):
+    """Float32 scores [B, KV, G, cq, ck] of q chunk ``qb`` [B, cq, KV, G, hd]
+    against k chunk ``kb`` [B, ck, KV, hd], masked to NEG_INF."""
+    s = torch.einsum("bqkgh,bckh->bkgqc", qb.to(F32), kb.to(F32)) * scale
+    return s if mask is None else torch.where(mask, s, NEG_INF)
+
+
+def _flash_forward(q, k, v, geo: _Geometry, bdt):
+    """The online softmax over kv chunks, one q chunk at a time: float32
+    running max ``m``, sum ``l`` and accumulator. q [B, Sq, KV, G, hd],
+    k / v [B, Sk, KV, hd], all padded to whole chunks. Returns (out
+    [B, Sq, KV, G, hd] in q's dtype, lse [B, KV, G, Sq] float32)."""
+    b, _, kvh, g, hd = q.shape
+    cq, ck = geo.cq, geo.ck
+    scale = 1.0 / float(hd) ** 0.5      # a Python float, as the reference's
+    outs, lses = [], []
+    for qi in range(geo.nq):
+        qb = q[:, qi * cq:(qi + 1) * cq]
+        m = torch.full((b, kvh, g, cq), NEG_INF, dtype=F32, device=q.device)
+        l = torch.zeros((b, kvh, g, cq), dtype=F32, device=q.device)
+        acc = torch.zeros((b, kvh, g, cq, hd), dtype=F32, device=q.device)
+        for ki in geo.blocks(qi):
+            s = _scores(qb, k[:, ki * ck:(ki + 1) * ck],
+                        geo.mask(qi, ki, q.device), scale)
+            new_m = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - new_m[..., None])
+            corr = torch.exp(m - new_m)
+            l = l * corr + torch.sum(p, dim=-1)
+            pv = torch.einsum("bkgqc,bckh->bkgqh", p.to(bdt),
+                              v[:, ki * ck:(ki + 1) * ck].to(bdt)).to(F32)
+            acc = acc * corr[..., None] + pv
+            m = new_m
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    out = torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4)    # [B,Sq,KV,G,hd]
+    return out.to(q.dtype), torch.cat(lses, dim=3)
+
+
+def _flash_backward(q, k, v, out, lse, dout, geo: _Geometry, bdt):
+    """dq, dk, dv (float32, then the inputs' dtypes) of the forward above,
+    each score block recomputed from q, k and ``lse``: with D = rowsum(dout
+    * out), dS = P * (dout v^T - D) * scale (FlashAttention-2's backward,
+    the reference's ``flash_bwd``)."""
+    b, _, kvh, g, hd = q.shape
+    cq, ck = geo.cq, geo.ck
+    scale = 1.0 / float(hd) ** 0.5
+    do = dout.to(F32)
+    dd = torch.sum(do * out.to(F32), dim=-1).permute(0, 2, 3, 1)  # [B,KV,G,Sq]
+    dk = torch.zeros(k.shape, dtype=F32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=F32, device=v.device)
+    dqs = []
+    for qi in range(geo.nq):
+        rows = slice(qi * cq, (qi + 1) * cq)
+        qb = q[:, rows].to(F32)
+        dob = do[:, rows]
+        lse_b, d_b = lse[..., rows], dd[..., rows]
+        dq = torch.zeros((b, cq, kvh, g, hd), dtype=F32, device=q.device)
+        for ki in geo.blocks(qi):
+            cols = slice(ki * ck, (ki + 1) * ck)
+            kb, vb = k[:, cols].to(F32), v[:, cols].to(F32)
+            s = _scores(qb, kb, geo.mask(qi, ki, q.device), scale)
+            p = torch.exp(s - lse_b[..., None])             # [B,KV,G,cq,ck]
+            dv[:, cols] += torch.einsum("bkgqc,bqkgh->bckh", p.to(bdt),
+                                        dob.to(bdt)).to(F32)
+            dp = torch.einsum("bqkgh,bckh->bkgqc", dob.to(bdt),
+                              vb.to(bdt)).to(F32)
+            ds = p * (dp - d_b[..., None]) * scale
+            dq = dq + torch.einsum("bkgqc,bckh->bqkgh", ds.to(bdt),
+                                   kb.to(bdt)).to(F32)
+            dk[:, cols] += torch.einsum("bkgqc,bqkgh->bckh", ds.to(bdt),
+                                        qb.to(bdt)).to(F32)
+        dqs.append(dq)
+    return (torch.cat(dqs, dim=1).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with a recompute backward (the reference's
+    ``_make_flash_vjp``): the forward saves only (q, k, v, out, lse), never
+    a score block, and the backward recomputes each block."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, geo, bdt):
+        out, lse = _flash_forward(q, k, v, geo, bdt)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.geo, ctx.bdt = geo, bdt
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, dout, ctx.geo,
+                                     ctx.bdt)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, q_offset: int = 0, causal: bool = True,
+                    window: int = 0, chunk_q: int = 512,
+                    chunk_k: int = 1024, block_dtype: str = "float32"):
+    """Chunked attention. q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd].
+
+    The reference's ``flash_attention`` on its recompute-VJP path: queries
+    in chunks of ``chunk_q``, keys in chunks of ``chunk_k``, both padded to
+    whole chunks (padded keys masked), an online softmax over the kv chunks
+    in float32, the query at row i at position ``q_offset + i``; ``causal``
+    keeps keys at or before it and ``window > 0`` only the last ``window``.
+    GQA as the reference's default ``gqa="repeat"``: each kv head is
+    repeated over its H // KV query heads, so dk / dv of the repeats are
+    summed by the repeat's backward. ``block_dtype``
+    is the dtype of the p @ v and backward products (float32 unless the
+    caller's ``opts["attn_block_dtype"]`` says otherwise)."""
+    b, sq, h, hd = q.shape
+    _, sk, kvh, _ = k.shape
+    if kvh != h:
+        k = k.repeat_interleave(h // kvh, dim=2)
+        v = v.repeat_interleave(h // kvh, dim=2)
+        kvh = h
+    g = h // kvh
+    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
+    nq, nk = -(-sq // cq), -(-sk // ck)
+    if nq * cq != sq:
+        q = F.pad(q, (0, 0, 0, 0, 0, nq * cq - sq))
+    if nk * ck != sk:
+        k = F.pad(k, (0, 0, 0, 0, 0, nk * ck - sk))
+        v = F.pad(v, (0, 0, 0, 0, 0, nk * ck - sk))
+    geo = _Geometry(causal, int(window), cq, ck, nq, nk, int(q_offset), sk)
+    out = _Flash.apply(q.reshape(b, nq * cq, kvh, g, hd), k, v, geo,
+                       getattr(torch, block_dtype))
+    return out.reshape(b, nq * cq, h, hd)[:, :sq].to(q.dtype)
+
+
+# the prefill / forward attention of every family
+attention = flash_attention
+
+
+def attention_one_block(q, k, v, q_offset: int = 0, causal: bool = True,
+                        window: int = 0):
+    """The plain version :func:`flash_attention` is held to: the whole
+    float32 score matrix [B, KV, G, Sq, Sk] in one block, differentiated by
+    autograd (which keeps it for the backward)."""
+    b, sq, h, hd = q.shape
+    _, sk, kvh, _ = k.shape
+    g = h // kvh
+    scale = 1.0 / float(hd) ** 0.5
+    qg = q.reshape(b, sq, kvh, g, hd)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(sk, device=q.device)
+    s = _scores(qg, k, _block_mask(q_pos, k_pos, sk, causal, window), scale)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    denom = torch.sum(p, dim=-1)
     acc = torch.einsum("bkgqc,bckh->bkgqh", p, v.to(F32))
-    out = acc / torch.clamp(denom[..., None], min=1e-30)
+    out = acc / torch.clamp(torch.sum(p, dim=-1)[..., None], min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 

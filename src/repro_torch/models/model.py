@@ -3,14 +3,14 @@
     cfg = get_config("qwen2-1.5b")
     params = model.init_params(cfg, seed)         # or abstract_params(cfg)
     logits, aux = model.forward(cfg, params, batch)
+    loss = model.loss_fn(cfg, params, batch)
     cache = model.init_cache(cfg, batch=8, max_seq=1024)
     logits, cache = model.decode_step(cfg, params, cache, token)
 
-``batch`` is a dict with tokens [B, S], and frontend_embeds [B, T, D] for
-the audio / vision archs (stubbed embeddings, as the reference's). The
-``encdec`` family goes to ``models.encdec``, the decoder families to
-``models.transformer``. ``loss_fn`` and ``make_batch`` wait for the
-training slice.
+``batch`` is a dict with tokens [B, S], labels [B, S] (-1 = masked) for
+the loss, and frontend_embeds [B, T, D] for the audio / vision archs
+(stubbed embeddings, as the reference's). The ``encdec`` family goes to
+``models.encdec``, the decoder families to ``models.transformer``.
 
 :func:`from_host` / :func:`to_host` carry parameters between the packages:
 the reference's params pytree as numpy arrays (stacked block leaves; bf16
@@ -45,12 +45,54 @@ def needs_frontend(cfg: ModelConfig) -> bool:
     return cfg.num_frontend_tokens > 0
 
 
-def forward(cfg: ModelConfig, params, batch):
+def forward(cfg: ModelConfig, params, batch, *, remat: bool = True,
+            opts: dict | None = None):
     if cfg.family == "encdec":
         return encdec.forward(cfg, params, batch["tokens"],
-                              frontend_embeds=batch["frontend_embeds"])
+                              frontend_embeds=batch["frontend_embeds"],
+                              remat=remat)
     return transformer.forward(cfg, params, batch["tokens"],
-                               frontend_embeds=batch.get("frontend_embeds"))
+                               frontend_embeds=batch.get("frontend_embeds"),
+                               remat=remat, opts=opts)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True,
+            aux_weight: float = 0.01, opts: dict | None = None):
+    """Mean next-token cross entropy over the labels >= 0, plus
+    ``aux_weight`` times the MoE's load-balance loss: the log-sum-exp of
+    the float32 logits less the label's logit. The label's logit is
+    gathered, which is exact: it is the value the reference's one-hot sum
+    adds to zeros."""
+    logits, aux = forward(cfg, params, batch, remat=remat, opts=opts)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    mask = labels >= 0
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = torch.where(mask, lse - picked, 0.0)
+    loss = nll.sum() / mask.sum().clamp(min=1)
+    return loss + aux_weight * aux
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int, rng=None,
+               device=None) -> dict:
+    """A random training batch for this arch on ``device`` (``cuda``
+    unless given): tokens and labels uniform over the vocabulary, and
+    frontend_embeds ``N(0, 0.02^2)`` in ``cfg.dtype`` for the archs that
+    attend to them. ``rng`` is a ``torch.Generator`` on that device (a
+    fresh one seeded 0 when None)."""
+    device = resolve_device(device)
+    gen = rng if rng is not None else torch.Generator(device).manual_seed(0)
+    out = dict(
+        tokens=torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                             device=device, dtype=torch.int32),
+        labels=torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                             device=device, dtype=torch.int32))
+    if cfg.num_frontend_tokens:
+        out["frontend_embeds"] = (torch.randn(
+            (batch, cfg.num_frontend_tokens, cfg.d_model), generator=gen,
+            device=device) * 0.02).to(getattr(torch, cfg.dtype))
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
@@ -70,9 +112,12 @@ def _flatten(tree: dict, prefix: tuple = ()):
             yield prefix + (key,), val
 
 
-def _tensor(a: np.ndarray) -> torch.Tensor:
+def _tensor(a) -> torch.Tensor:
     """A host array as a tensor with the same bits; bf16 through an int16
-    view (neither ml_dtypes nor JAX is needed), uint16 as int16 bits."""
+    view (neither ml_dtypes nor JAX is needed), uint16 as int16 bits. A
+    tensor is taken as it is."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.array(a)           # a writable copy, C order
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -104,65 +149,88 @@ def _stacked(cfg: ModelConfig) -> dict[str, int]:
     return {"blocks": 2 if cfg.family == "vlm" else 1, "cross_blocks": 1}
 
 
-def from_host(cfg: ModelConfig, host_params: dict, device=None) -> nn.Module:
-    """The port's parameters on ``device`` (``cuda`` unless given) from the
-    reference's params pytree as numpy arrays: each stacked leaf (``blocks``
-    [L, ...], vlm's [n_super, every, ...], ``cross_blocks``, ``enc_blocks``,
-    ``dec_blocks``) becomes one parameter per index, ``blocks.{i}.<path>``
-    (``blocks.{s}.{j}.<path>``). Every leaf must name a parameter of
-    ``cfg``'s module with its shape and dtype, and every parameter must be
-    given. A bf16 parameter may also come as its uint16 bits (what
-    :func:`to_host` gives where numpy has no ``bfloat16``)."""
-    device = resolve_device(device)
-    module = abstract_params(cfg)
-    want = dict(module.named_parameters())
+def unstack(cfg: ModelConfig, host_tree: dict, dtype=None) -> dict:
+    """{parameter name: tensor} of ``cfg``'s module from a tree in the
+    reference's params layout (numpy arrays or tensors): each stacked
+    leaf (``blocks`` [L, ...], vlm's [n_super, every, ...],
+    ``cross_blocks``, ``enc_blocks``, ``dec_blocks``) split into one
+    tensor per index, ``blocks.{i}.<path>`` (``blocks.{s}.{j}.<path>``).
+    Every leaf must name a parameter with its shape, and with its dtype
+    (``dtype``, when given, for every leaf: the optimizer's moments), and
+    every parameter must be given. A bf16 leaf may also come as its uint16
+    bits (what :func:`to_host` gives where numpy has no ``bfloat16``)."""
+    want = dict(abstract_params(cfg).named_parameters())
     stacked = _stacked(cfg)
     got = {}
-    for path, leaf in _flatten(host_params):
+    for path, leaf in _flatten(host_tree):
         t = _tensor(leaf)
         axes = stacked.get(path[0], 0)
         for idx in np.ndindex(*t.shape[:axes]):
             got[".".join((path[0], *map(str, idx)) + path[1:])] = t[idx]
     if set(got) != set(want):
         raise ValueError(
-            f"params do not fit {cfg.name}: missing "
+            f"leaves do not fit {cfg.name}'s params: missing "
             f"{sorted(set(want) - set(got))}, unexpected "
             f"{sorted(set(got) - set(want))}")
     for name, t in got.items():
         p = want[name]
-        if p.dtype == torch.bfloat16 and t.dtype == torch.int16:
-            t = t.view(torch.bfloat16)
-        if t.shape != p.shape or t.dtype != p.dtype:
+        pdt = dtype or p.dtype
+        if pdt == torch.bfloat16 and t.dtype == torch.int16:
+            t = got[name] = t.view(torch.bfloat16)
+        if t.shape != p.shape or t.dtype != pdt:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected "
-                             f"{tuple(p.shape)} {p.dtype}")
+                             f"{tuple(p.shape)} {pdt}")
+    return got
+
+
+def from_host(cfg: ModelConfig, host_params: dict, device=None) -> nn.Module:
+    """The port's parameters on ``device`` (``cuda`` unless given) from the
+    reference's params pytree as numpy arrays (or tensors), split by
+    :func:`unstack`. The parameters have ``requires_grad=False``."""
+    device = resolve_device(device)
+    module = abstract_params(cfg)
+    for name, t in unstack(cfg, host_params).items():
         owner, _, leaf = name.rpartition(".")
         setattr(module.get_submodule(owner), leaf, nn.Parameter(
-            t.to(device).contiguous(), requires_grad=False))
+            t.to(device, copy=True).contiguous(), requires_grad=False))
     return module
 
 
-def to_host(params: nn.Module) -> dict:
-    """The inverse of :func:`from_host`: the reference's params pytree, each
-    stack's parameters (the numeric names after its first key) stacked on
-    leading axes."""
-    stacks: dict[tuple, dict[tuple, np.ndarray]] = {}
-    for name, p in params.named_parameters():
+def stack(named) -> dict:
+    """The inverse of :func:`unstack`: (name, tensor) pairs (a module's
+    ``named_parameters()``, or the optimizer's moments by parameter name)
+    as the reference's tree of host tensors, each stack's tensors (the
+    numeric names after its first key) stacked on leading axes. Every
+    tensor is a copy on the CPU."""
+    stacks: dict[tuple, dict[tuple, torch.Tensor]] = {}
+    for name, p in named:
         path = tuple(name.split("."))
         axes = 0
         while path[1 + axes:] and path[1 + axes].isdigit():
             axes += 1
         key = (path[0],) + path[1 + axes:]
         idx = tuple(int(i) for i in path[1:1 + axes])
-        stacks.setdefault(key, {})[idx] = _array(p)
+        stacks.setdefault(key, {})[idx] = p.detach()
     out: dict = {}
     for path, parts in stacks.items():
         shape = tuple(max(i[a] for i in parts) + 1
                       for a in range(len(next(iter(parts)))))
-        arr = (parts[()] if not shape else
-               np.stack([parts[i] for i in np.ndindex(*shape)]).reshape(
-                   shape + parts[(0,) * len(shape)].shape))
+        arr = (parts[()].to("cpu", copy=True) if not shape else
+               torch.stack([parts[i] for i in np.ndindex(*shape)]).reshape(
+                   shape + parts[(0,) * len(shape)].shape).cpu())
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = arr
     return out
+
+
+def to_host(params: nn.Module) -> dict:
+    """The inverse of :func:`from_host`: the reference's params pytree as
+    numpy arrays (:func:`stack` of the parameters)."""
+    return _map(_array, stack(params.named_parameters()))
+
+
+def _map(fn, tree: dict) -> dict:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}

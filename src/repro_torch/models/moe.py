@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN: token-choice top-k routing with capacity (port of
-``repro.models.moe``, its ``impl="sort"`` dispatch).
+``repro.models.moe``, its ``impl="sort"`` and ``impl="einsum"`` dispatch).
 
 Tokens are ranked within their expert in token order and written into an
 ``[E, C, D]`` buffer; a (token, slot) pair past the expert's capacity C is
@@ -14,6 +14,12 @@ all land on the discarded dump row, and each token's ``topk`` weighted
 expert outputs are summed one slot at a time in slot order (what the
 reference's ``.at[flat_tok].add`` computes; ``index_add_`` would sum
 duplicates by atomics, in an order that changes from run to run).
+
+``impl="einsum"`` is the reference's GShard dispatch with a group axis (the
+batch): each batch row is a group with its own capacity C = S * topk * cf /
+E, its (token, slot) pairs ranked in its expert in token order, and
+dispatch and combine are one-hot products. It drops other pairs than
+``"sort"``'s single global group.
 """
 from __future__ import annotations
 
@@ -58,17 +64,75 @@ def ranks(expert, num_experts: int, capacity_factor: float):
     return pos, pos < capacity, capacity
 
 
+def group_ranks(expert, groups: int, num_experts: int,
+                capacity_factor: float):
+    """``impl="einsum"``'s ranks: the experts [T, topk] picked, as [G, S,
+    topk], give (rank, the place of each (token, slot) in its expert within
+    its group in token-then-slot order; keep, rank < capacity; capacity,
+    ``max(1, int(S * topk * capacity_factor / E))``)."""
+    t, topk = expert.shape
+    s = t // groups
+    e = num_experts
+    capacity = max(1, int(s * topk * capacity_factor / e))
+    oh = F.one_hot(expert.reshape(groups, s * topk), e)      # [G, S*K, E]
+    rank = torch.sum((torch.cumsum(oh, dim=1) - oh) * oh, dim=-1)
+    rank = rank.reshape(groups, s, topk)
+    return rank, rank < capacity, capacity
+
+
+def _moe_einsum(params, x, probs, gate, expert, e, topk, cf, act):
+    """The reference's ``_moe_einsum``: dispatch masks [G, S, E, C] one
+    slot at a time, the expert FFN on [G, E, C, D], and the gated
+    combine. A dispatch product sums one token and zeros, and a combine
+    product one gated expert output and zeros, so each is exact."""
+    g, s, d = x.shape
+    rank, keep, cap = group_ranks(expert, g, e, cf)
+    oh = F.one_hot(expert.reshape(g, s, topk), e).to(x.dtype)  # [G,S,K,E]
+    gate_g = gate.reshape(g, s, topk).to(x.dtype)
+    xe = torch.zeros((g, e * cap, d), dtype=F32, device=x.device)
+    combine = []
+    for k in range(topk):
+        slot = torch.where(keep[..., k], rank[..., k], cap)
+        pos_oh = F.one_hot(slot, cap + 1).to(x.dtype)[..., :cap]  # [G,S,C]
+        disp = (oh[..., k, :, None] * pos_oh[..., None, :]).reshape(
+            g, s, e * cap)                                   # [G, S, E*C]
+        xe = xe + L.bmm_f32(disp.transpose(1, 2), x)
+        combine.append(disp * gate_g[..., k, None])
+    xe = xe.to(x.dtype).reshape(g, e, cap, d).transpose(0, 1)  # [E,G,C,D]
+    xe = xe.reshape(e, g * cap, d)
+    gdt = L.bmm_f32(xe, params.wg)
+    udt = L.bmm_f32(xe, params.wu)
+    h = (L._act(act, gdt) * udt).to(x.dtype)
+    ye = L.bmm_f32(h, params.wd).to(x.dtype)                 # [E, G*C, D]
+    ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    yt = torch.zeros((g, s, d), dtype=F32, device=x.device)
+    for k in range(topk):
+        yt = yt + L.bmm_f32(combine[k], ye)
+    return yt.to(x.dtype)
+
+
 def moe_ffn(params, x, *, num_experts: int, experts_per_token: int,
-            capacity_factor: float = 1.25, act: str = "silu"):
+            capacity_factor: float = 1.25, act: str = "silu",
+            impl: str = "sort"):
     """x [B, S, D] -> (y [B, S, D], aux). ``params`` holds wr [D, E] (the
     router, float32), wg / wu [E, D, F] and wd [E, F, D]. ``aux`` is the
-    Switch load-balance loss ``E * sum_e f_e * p_e`` (float32)."""
+    Switch load-balance loss ``E * sum_e f_e * p_e`` (float32). ``impl``
+    is the dispatch: "sort" (one global group) or "einsum" (a group per
+    batch row)."""
     b, s, d = x.shape
     e, topk = num_experts, experts_per_token
     t = b * s
     xt = x.reshape(t, d)
     probs, gate, expert, pos, keep, capacity = route(
         params.wr, xt, e, topk, capacity_factor)
+    me = torch.mean(probs, dim=0)
+    ce = torch.mean(F.one_hot(expert[:, 0], e).to(F32), dim=0)
+    aux = e * torch.sum(me * ce)
+    if impl == "einsum":
+        return _moe_einsum(params, x, probs, gate, expert, e, topk,
+                           capacity_factor, act), aux
+    if impl != "sort":
+        raise ValueError(f"moe impl {impl!r}: 'sort' or 'einsum'")
     flat_expert = expert.reshape(-1)
     flat_tok = torch.arange(t, device=x.device).repeat_interleave(topk)
     dest = torch.where(keep, flat_expert * capacity + pos, e * capacity)
@@ -87,8 +151,4 @@ def moe_ffn(params, x, *, num_experts: int, experts_per_token: int,
     yt = contrib[:, 0]
     for k in range(1, topk):
         yt = yt + contrib[:, k]
-
-    me = torch.mean(probs, dim=0)
-    ce = torch.mean(F.one_hot(expert[:, 0], e).to(F32), dim=0)
-    aux = e * torch.sum(me * ce)
     return yt.reshape(b, s, d).to(x.dtype), aux

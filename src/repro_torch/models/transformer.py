@@ -13,8 +13,9 @@ heterogeneous stacks keep the reference's superblocks: vlm's
 Weights keep the reference's ``x @ W`` layout and dtypes: the matrices, the
 embedding, the expert stacks and the conv filters in ``cfg.dtype``; the
 norm offsets, the router, the recurrences' parameters and the cross gate in
-float32. Parameters are made with ``requires_grad=False``: this package
-serves; training is a later slice.
+float32. Parameters are made with ``requires_grad=False``, as serving wants
+them; the training step (``launch.steps.build_train_step``) turns gradients
+on for the module it trains, and every parameter then receives one.
 
 Decode writes the new k / v and recurrent states into the cache's tensors
 in place: the stacked ``k`` / ``v`` [L, B, max_seq, KV, hd] (vlm [n_super,
@@ -22,15 +23,23 @@ every, ...], hybrid [n_super, n_attn, B, win, ...] ring-buffered over the
 local window), ssm's ``conv`` [L, B, K, Di + 2N] and float32 ``h`` [L, B,
 H, P, N], hybrid's ``conv`` and float32 ``lru_h``.
 
-The reference's XLA knobs (``remat``, ``skip_future``, ``opts`` with
-``moe_impl`` / ``moe_shard_experts``, ``decode_cache_in_carry``) have no
-counterpart: they change the compiled program, not the result, except
-``moe_impl="einsum"``, the training slice's per-group dispatch.
+``forward(remat=True)``, the reference's default, recomputes each block
+(vlm's and hybrid's superblocks) in the backward instead of keeping its
+activations, with ``torch.utils.checkpoint`` where the reference calls
+``jax.checkpoint``; it changes no result. ``opts`` reads the reference's
+``moe_impl`` ("sort", or "einsum": the per-group one-hot dispatch, which
+drops other pairs) and ``attn_block_dtype``. Its other XLA knobs
+(``skip_future``, ``moe_shard_experts``, ``pad_heads_to``,
+``shard_attn_heads``, ``decode_cache_in_carry``) change the compiled
+program, not the result, and have no counterpart: fully masked future kv
+chunks are always skipped.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -305,7 +314,7 @@ def _embed(cfg: ModelConfig, params: DecoderLM, tokens,
 
 
 def _self_attn(blk: Block, x, positions, cfg: ModelConfig, window: int = 0,
-               decode=None):
+               decode=None, opts: dict | None = None):
     h = L.rms_norm(x, blk.norm1, cfg.norm_eps)
     q, k, v = L.qkv_project(blk.attn, h, cfg.num_heads, cfg.num_kv_heads,
                             cfg.resolved_head_dim)
@@ -328,11 +337,13 @@ def _self_attn(blk: Block, x, positions, cfg: ModelConfig, window: int = 0,
             o = L.decode_attention(q, k_cache, v_cache, cache_len + 1,
                                    window=window)
         return x + L.out_project(blk.attn, o)
-    o = L.attention(q, k, v, q_offset=0, causal=True, window=window)
+    o = L.attention(q, k, v, q_offset=0, causal=True, window=window,
+                    block_dtype=(opts or {}).get("attn_block_dtype",
+                                                 "float32"))
     return x + L.out_project(blk.attn, o)
 
 
-def _ffn(blk, x, cfg: ModelConfig):
+def _ffn(blk, x, cfg: ModelConfig, opts: dict | None = None):
     """x plus the block's MLP (or experts) on its norm; returns (x, aux)."""
     h = L.rms_norm(x, blk.norm2, cfg.norm_eps)
     moe = getattr(blk, "moe", None)
@@ -340,7 +351,8 @@ def _ffn(blk, x, cfg: ModelConfig):
         y, aux = moe_ffn(moe, h, num_experts=cfg.num_experts,
                          experts_per_token=cfg.experts_per_token,
                          capacity_factor=cfg.capacity_factor,
-                         act=cfg.mlp_act)
+                         act=cfg.mlp_act,
+                         impl=(opts or {}).get("moe_impl", "sort"))
         return x + y, aux
     if cfg.mlp_act == "gelu_mlp":
         return x + L.dense_mlp(blk.mlp, h, "gelu"), 0.0
@@ -404,44 +416,81 @@ def _logits(cfg: ModelConfig, params: DecoderLM, x) -> torch.Tensor:
     return L.dot_f32(x, params.head())
 
 
+def _remat(fn, remat: bool, params: nn.Module):
+    """``fn``, recomputed in the backward (``jax.checkpoint``'s place) when
+    ``remat`` and a graph is being recorded for the parameters; as is
+    otherwise (serving records none, so the wrapper would only cost)."""
+    if not (remat and torch.is_grad_enabled()
+            and any(p.requires_grad for p in params.parameters())):
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                 preserve_rng_state=False)
+
+
 def forward(cfg: ModelConfig, params: DecoderLM, tokens,
-            frontend_embeds=None):
-    """Token logits for prefill. tokens [B, S] -> logits [B, S, V] float32;
-    vlm attends to ``frontend_embeds`` [B, T, D].
+            frontend_embeds=None, *, remat: bool = True,
+            opts: dict | None = None):
+    """Token logits for train / prefill. tokens [B, S] -> logits [B, S, V]
+    float32; vlm attends to ``frontend_embeds`` [B, T, D].
 
     Returns (logits, aux_loss): moe's summed Switch losses (float32), 0.0
-    for the other families."""
+    for the other families. ``remat`` recomputes each block (vlm's and
+    hybrid's superblocks; hybrid's tail blocks are not, as in the
+    reference) in the backward."""
     fam = cfg.family
     x = _embed(cfg, params, tokens, scale=fam in FORWARD_SCALED)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     auxs = []
     if fam in ("dense", "moe"):
+        def blk_fn(x, blk):
+            x = _self_attn(blk, x, positions, cfg, opts=opts)
+            return _ffn(blk, x, cfg, opts)
+
+        blk_fn = _remat(blk_fn, remat, params)
         for blk in params.blocks:
-            x = _self_attn(blk, x, positions, cfg)
-            x, aux = _ffn(blk, x, cfg)
+            x, aux = blk_fn(x, blk)
             auxs.append(aux)
     elif fam == "vlm":
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name} attends to frontend_embeds "
                              "[B, T, D]; none given")
         kv_src = torch.as_tensor(frontend_embeds, device=x.device)
-        for selfs, cross in zip(params.blocks, params.cross_blocks):
+
+        def super_fn(x, selfs, cross):
             for blk in selfs:
-                x = _self_attn(blk, x, positions, cfg)
-                x, _ = _ffn(blk, x, cfg)
-            x = _cross_attn(cross, x, kv_src, cfg)
+                x = _self_attn(blk, x, positions, cfg, opts=opts)
+                x, _ = _ffn(blk, x, cfg, opts)
+            return _cross_attn(cross, x, kv_src, cfg)
+
+        super_fn = _remat(super_fn, remat, params)
+        for selfs, cross in zip(params.blocks, params.cross_blocks):
+            x = super_fn(x, selfs, cross)
     elif fam == "hybrid":
-        for c, blk, _ in _hybrid_blocks(cfg, params):
+        def pattern_blk(c, blk, x):
             if c == "R":
-                x, _ = _rec_block(blk, x, cfg)
-            else:
-                x = _self_attn(blk, x, positions, cfg,
-                               window=cfg.local_window)
-                x, _ = _ffn(blk, x, cfg)
+                return _rec_block(blk, x, cfg)[0]
+            x = _self_attn(blk, x, positions, cfg, window=cfg.local_window,
+                           opts=opts)
+            return _ffn(blk, x, cfg, opts)[0]
+
+        def super_fn(x, sb):
+            for i, c in enumerate(cfg.block_pattern):
+                x = pattern_blk(c, getattr(sb, f"b{i}"), x)
+            return x
+
+        super_fn = _remat(super_fn, remat, params)
+        for sb in params.blocks:
+            x = super_fn(x, sb)
+        for i, c in enumerate(_hybrid_tail(cfg)):
+            x = pattern_blk(c, getattr(params, f"tail{i}"), x)
     else:   # ssm
+        def blk_fn(x, blk):
+            return _ssm_block(blk, x, cfg)[0]
+
+        blk_fn = _remat(blk_fn, remat, params)
         for blk in params.blocks:
-            x, _ = _ssm_block(blk, x, cfg)
+            x = blk_fn(x, blk)
     aux = torch.stack(auxs).sum() if fam == "moe" else 0.0
     return _logits(cfg, params, x), aux
 
