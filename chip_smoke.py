@@ -175,7 +175,7 @@ Phases:
    oracle's X), and timed there beside their bounds (``path9_shapes`` in
    their rows).
 
-10. The paper's index (HNSW) on the first ``N10`` = 10 000 rows of phase
+10. The paper's index (HNSW) on the first ``N10`` = 5 000 rows of phase
    4's corpus (half of benchmarks/datasets.py's N_DEFAULT; listed under
    ``reduced``: the builder is host code, one insert at a time, and at
    20 000 rows the script passed its time limit) and phase 4's queries,
@@ -287,6 +287,45 @@ Phases:
    ``kernels/csrc`` is on the training path (the JAX LM has no Pallas
    kernel): phase 13 counts 0 launches of each.
 
+14. The process-group mesh (run after phase 8, on phase 6's index, queries,
+   eps and served results; the parent has built the kernels, so the ranks
+   only load them). Phase 6's index goes to a temporary directory, one
+   ``local_shard`` file per rank, beside the corpus and the queries. (a)
+   ``SHARDS`` ranks spawned with ``torch.multiprocessing``, gloo, all on
+   the one card: each loads its shard of the 1M x 96 index, runs
+   ``sharded_topk`` (tournament: log2(P) butterfly rounds, each one
+   ``exchange`` with rank ``me ^ stride`` and one two-run ``topk_merge``
+   launch; and all-gather) and ``sharded_progressive_diverse`` over the
+   first 16 queries, then a ``LaneScheduler`` on rank 0 over a 16-lane
+   ``ShardedEngine`` serves the 64 queries while the other ranks follow
+   (``serve.scheduler.follow``). Gate: ids, score bits, certificates,
+   ``K_final`` and expansions bit-equal to phase 6's ``LocalMesh`` results
+   (the searches recomputed on phase 6's mesh here, the engine's served
+   results of phase 6 (d)), and ``topk_merge``, ``sim_gather`` and
+   ``pairwise_adjacency`` launched inside every rank. Printed: QPS and p50
+   / p99 (rank 0's ``latency_stats``), each rank's launches by name, its
+   seconds inside collectives and the bytes its exchanges staged through
+   host memory (gloo's point-to-point ops do not take CUDA tensors). (b) ``DP_RANKS`` gloo ranks on the card train qwen2-1.5b at
+   full width and depth data parallel (``build_train_step`` on a
+   ``(2, 1)`` mesh: each rank's rows of the global B = 16, S = 64 batch,
+   the loss over the global label count, the gradients summed in float32)
+   for 3 steps under deterministic algorithms; then rank 0 runs one
+   process's 3 steps on the same batches, twice: over the ranks' row
+   blocks with the data-parallel arithmetic (``rows_step``), and over the
+   whole batch at once (``build_train_step(cfg, None)``). Gate: the ranks'
+   losses and every parameter after the 3 steps bit-equal to the row
+   blocks' (0 bf16 ulps); against the whole batch, every loss within
+   ``DP_WHOLE_LOSS_RTOL`` and the first step's gradients within
+   ``TRAIN_GRAD_ULPS`` bf16 ulps of each leaf's largest |entry| (the
+   parameters' 1-ulp flips and larger gaps are reported). Printed: ms a
+   step, the all-reduce's share of it, each rank's peak allocated bytes.
+   (c) NCCL
+   at world size 1: every collective, ``compressed_psum`` (two rounds) and
+   both matmuls equal to a gloo group's of the same rank bit for bit; with
+   ``SHARDS`` cards or more, (a) again over NCCL with one card per rank,
+   else ``nccl_across_cards: not run (1 card)``. The ranks that share one
+   card measure the port's code path, not NCCL's bandwidth.
+
 Each phase's wall is logged on a line of its own and kept under
 ``phase_walls_s`` in chiprun_out/chip_smoke.json, beside the script's.
 
@@ -391,8 +430,10 @@ PATH9_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
                  "pairwise_adjacency", "greedy_diversify")
 # phase 10: the paper's index (benchmarks/datasets.py load_graph's builder
 # and settings, M = 12, ef_construction = 80) over the first N10 rows of
-# phase 4's corpus, half the benchmarks' N_DEFAULT (datasets.py:29; the cut
-# is listed under ``reduced``: at 20 000 rows the script took 1 260.5 s);
+# phase 4's corpus, a quarter of the benchmarks' N_DEFAULT (datasets.py:29;
+# the cut is listed under ``reduced``: at 20 000 rows the script took
+# 1 260.5 s, and at 10 000 phase 10 took 395-419 s of a 1 011.4 s script
+# before phase 14 was added);
 # each graph's engine serves the first SERVED10 queries and reruns RERUN10
 # on the plain versions, the per-query API runs on the first Q10 (cuts
 # listed under ``reduced``: at 64 / 4 / 4 the script took 1 386.8 s, and
@@ -402,7 +443,7 @@ PATH9_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
 # (builder="hnsw" at its defaults, M = 16, ef_construction = 200), its
 # writes and background rebuild (reads served while it runs, at most
 # FD10_MAX_ROUNDS batches), and the sharded path on the first FD10_ROWS rows
-N10, M10, EFC10 = 10_000, 12, 80
+N10, M10, EFC10 = 5_000, 12, 80
 SERVED10, RERUN10, Q10 = 16, 1, 1
 FD10_ROWS, FD10_SHARDS, FD10_WRITES, FD10_QUERIES = 1_024, 4, 8, 16
 FD10_MAX_ROUNDS = 64
@@ -485,6 +526,24 @@ TRAIN_CPU_B, TRAIN_CPU_S = 2, 64
 TRAIN_LOSS_RTOL, TRAIN_GRAD_ULPS, TRAIN_FLIP_SHARE = 1e-4, 8, 0.01
 TRAIN_F32_PARAM_RTOL = 1e-4
 PEAK_BF16_FLOP_S = 989e12    # H100 SXM bf16 tensor cores, dense
+# phase 14: the process-group mesh (run after phase 8, on phase 6's index,
+# queries, eps and served results). (a) SHARDS gloo ranks sharing the card,
+# one shard each; (b) DP_RANKS gloo ranks training TRAIN_ARCH at full width
+# and depth data parallel, TRAIN_B x TRAIN_S global batches, DP_STEPS
+# steps, against one process's steps on the same batches (bit for bit over
+# the ranks' row blocks; phase 13 (c)'s gradient tolerance over the whole
+# batch); (c) NCCL at world size 1 against gloo. Every rank joins its
+# group through a file store with a PG_TIMEOUT_S timeout, and the parent
+# kills ranks not done by then
+DP_RANKS, DP_STEPS, PG_TIMEOUT_S = 2, 3, 600
+# (b)'s loss against one process's step over the whole batch at once: the
+# ranks' GEMMs of B / DP_RANKS rows round bf16 otherwise than the whole
+# batch's, and the gap grows over the 28 layers (2.8e-4 measured, NVIDIA
+# H100 80GB HBM3, 700 W); the ranks are held bit for bit to one process
+# over the same row blocks instead
+DP_WHOLE_LOSS_RTOL = 1e-3
+PATH14_KERNELS = ("topk_merge", "batch_similarity_gather",
+                  "pairwise_adjacency")
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
@@ -3095,13 +3154,14 @@ def hnsw_path(torch, report, x_np, qs_np, seed, device):
     t_path = time.perf_counter()
     report.setdefault("reduced", []).append(
         f"phase 10 builds its HNSW graph over the first {len(x_np)} rows of "
-        "phase 4's corpus, half the benchmarks' N_DEFAULT of 20 000 and not "
-        "1M: the builder is host code, one insert at a time (4.36-4.62 ms "
-        "an insert at 20 000 rows on H100 machines' hosts, more as the "
-        "graph deepens: hours at 1M), and at 20 000 rows the whole script "
-        "took 1 260.5 s (NVIDIA H100 80GB HBM3, 700 W), past its 1 200 s "
-        f"limit; its facade, rebuild and shards run on the first "
-        f"{FD10_ROWS} rows")
+        "phase 4's corpus, a quarter of the benchmarks' N_DEFAULT of 20 000 "
+        "and not 1M: the builder is host code, one insert at a time "
+        "(4.36-4.62 ms an insert at 20 000 rows on H100 machines' hosts, "
+        "more as the graph deepens: hours at 1M); at 20 000 rows the whole "
+        "script took 1 260.5 s (NVIDIA H100 80GB HBM3, 700 W), past its "
+        "1 200 s limit, and at 10 000 phase 10 took 395-419 s of a 1 011.4 s "
+        "script before phase 14 was added; its facade, rebuild and shards "
+        f"run on the first {FD10_ROWS} rows")
     report["reduced"].append(
         f"phase 10's engines serve {SERVED10} of the 64 queries (one wave "
         f"of the 16 lanes, all held to the lockstep batch), rerun "
@@ -4305,6 +4365,536 @@ def ptxas_summary(logs: dict) -> dict:
             for name in PTXAS_SOURCES}
 
 
+# ------------------------------------------------------------ phase 14 ----
+
+def pg_spawn(torch, fn, world: int, *args, timeout: float = PG_TIMEOUT_S):
+    """``fn(rank, world, *args)`` on ``world`` spawned ranks; raises if one
+    raises, and kills them all past ``timeout`` seconds."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(world,) + args, nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + timeout
+    while not ctx.join(timeout=max(0.1, deadline - time.perf_counter())):
+        if time.perf_counter() >= deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise AssertionError(f"phase 14: {fn.__name__} on {world} ranks "
+                                 f"not done in {timeout} s")
+
+
+def pg_rank_mesh(torch, rank, world, tmp, tag, backend, shape=None,
+                 axes=("data",)):
+    """This rank's device and ``ProcessGroupMesh`` (gloo ranks share card
+    0; NCCL ranks take one card each)."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.set_num_threads(1)
+    from repro_torch.compat import make_process_mesh
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    mesh = make_process_mesh(
+        shape or (world,), axes, backend=backend,
+        init_method="file://" + os.path.join(tmp, f"{tag}.store"), rank=rank,
+        world_size=world, timeout_s=PG_TIMEOUT_S, device=dev)
+    return dev, mesh
+
+
+def pg_search_rank(rank, world, tmp, backend):
+    """Phase 14 (a) on one rank: its shard of phase 6's index, the
+    scratch and progressive searches over the first LANES queries, then the
+    scheduler (rank 0) or its follower over the 64 queries."""
+    import torch
+    import torch.distributed as dist
+
+    dev, mesh = pg_rank_mesh(torch, rank, world, tmp, f"search{backend}",
+                             backend)
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import LaneScheduler, follow
+    from repro_torch.sharded_search import search as ss
+    from repro_torch.sharded_search.engine import ShardedEngine
+
+    t0 = time.perf_counter()
+    with np.load(os.path.join(tmp, f"shard{rank}.npz")) as f:
+        host = {k: f[k] for k in f.files}
+    host.update(metric="l2", scheme=None, scale_rows=SCALE_ROWS,
+                total_shards=world)
+    index = ss.index_from_host(host, device=dev)
+    x = torch.as_tensor(np.load(os.path.join(tmp, "x.npy")), device=dev)
+    with np.load(os.path.join(tmp, "queries.npz")) as f:
+        qs_np, eps = f["qs"], float(f["eps"])
+    torch.cuda.synchronize()
+    out = {"load_s": time.perf_counter() - t0}
+    ops.reset_launch_counts()
+    t_path = time.perf_counter()
+    q16 = torch.as_tensor(qs_np[:LANES], device=dev)
+    for merge in ("tournament", "allgather"):
+        r = ss.sharded_topk(index, q16, K, SH_L, mesh, merge=merge,
+                            with_expansions=True)
+        for name, a in zip(("ids", "scores", "expansions"), r):
+            out[f"topk_{merge}_{name}"] = a.cpu().numpy()
+    r = ss.sharded_progressive_diverse(index, x, qs_np[:LANES], K, eps, mesh,
+                                       K0=K0, L_factor=L_FACTOR,
+                                       max_rounds=MAX_ROUNDS, resume="beam")
+    for name, a in zip(("ids", "scores", "certified", "K_final"), r):
+        out[f"progressive_{name}"] = np.asarray(a)
+    torch.cuda.synchronize()
+    out["scratch_s"] = time.perf_counter() - t_path
+    eng = ShardedEngine(index, x, mesh, num_lanes=LANES, K0=K0,
+                        L_factor=L_FACTOR, max_rounds=MAX_ROUNDS, max_k=K,
+                        resume="beam")
+    c0 = mesh.collective_s
+    if rank:
+        out["follower_steps"] = follow(eng)
+        torch.cuda.synchronize()
+    else:
+        sched = LaneScheduler(backend=eng, prewarm=True,
+                              max_pending=len(qs_np))
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter()
+        reqs = [sched.submit(q, K, eps) for q in qs_np]
+        sched.drain()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t_serve
+        sched.close()
+        res = [q.result for q in reqs]
+        stats = sched.latency_stats()
+        out.update(
+            sched_ids=np.stack([x.ids for x in res]),
+            sched_scores=np.stack([x.scores for x in res]),
+            sched_certified=np.array([x.stats.certified for x in res]),
+            sched_K_final=np.array([x.stats.K_final for x in res]),
+            sched_expansions=np.array([x.stats.expansions for x in res]),
+            serve_s=serve_s, qps=len(qs_np) / serve_s,
+            p50_s=stats["p50_latency"], p99_s=stats["p99_latency"],
+            pumps=sched.steps)
+    out["serve_collective_s"] = mesh.collective_s - c0
+    out["path_s"] = time.perf_counter() - t_path
+    out["collective_s"] = mesh.collective_s
+    out["staged_bytes"] = mesh.staged_bytes
+    out["launches"] = ops.launch_counts()
+    scalars = {k: v for k, v in out.items() if not isinstance(v, np.ndarray)}
+    with open(os.path.join(tmp, f"search{backend}_{rank}.json"), "w") as f:
+        json.dump(scalars, f)
+    np.savez(os.path.join(tmp, f"search{backend}_{rank}.npz"),
+             **{k: v for k, v in out.items() if isinstance(v, np.ndarray)})
+    dist.destroy_process_group()
+
+
+class GradCapture:
+    """The optimizer the train step is given, keeping a copy of the first
+    step's gradients (``first``) before it updates."""
+
+    def __init__(self, opt):
+        self.opt, self.first = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        if self.first is None:
+            self.first = {k: g.detach().clone() for k, g in grads.items()}
+        return self.opt.update(grads, state, params)
+
+
+def rows_step(cfg, opt, parts: int):
+    """One process's train step over the global batch in ``parts`` row
+    blocks, with the data-parallel step's arithmetic (the loss of each block
+    over the global label count, the blocks' gradients summed in float32
+    and rounded once to the parameters' dtype): what ``parts`` ranks
+    compute, in one process."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    def step(params, state, batch):
+        params.requires_grad_(True)
+        named = list(params.named_parameters())
+        count = (batch["labels"] >= 0).sum()
+        b = batch["tokens"].shape[0] // parts
+        acc, loss = None, 0.0
+        for r in range(parts):
+            rows = {k: v[r * b:(r + 1) * b] for k, v in batch.items()}
+            part = M.loss_fn(cfg, params, rows, label_count=count)
+            g = torch.autograd.grad(part, [p for _, p in named])
+            g32 = [x.to(torch.float32) for x in g]
+            acc = g32 if acc is None else [a + x for a, x in zip(acc, g32)]
+            loss = loss + part.detach()
+            del g, g32
+        grads = {n: a.to(p.dtype) for (n, p), a in zip(named, acc)}
+        del acc
+        return params, opt.update(grads, state, params), loss
+
+    return step
+
+
+def pg_train_rank(rank, world, tmp, seed):
+    """Phase 14 (b) on one rank: DP_STEPS data-parallel steps of the full
+    model under deterministic algorithms; then rank 0 runs one process's
+    steps on the same global batches, in the ranks' row blocks and whole,
+    and holds the ranks' against them."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+    import torch.distributed as dist
+
+    torch.use_deterministic_algorithms(True)
+    dev, mesh = pg_rank_mesh(torch, rank, world, tmp, "train", "gloo",
+                             shape=(world, 1), axes=("data", "model"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.models import model as M
+
+    cfg = get_config(TRAIN_ARCH)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=seed)
+
+    def batch(i):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in data.batch_at(i).items()}
+
+    def run(m, how, on_first, on_end):
+        """DP_STEPS steps; ``on_first(params, grads)`` after the first
+        (its gradients as the optimizer was given them), ``on_end(params)``
+        after the last."""
+        opt = GradCapture(opt_mod.AdamW(lr=opt_mod.cosine_schedule(
+            3e-3, 1, TRAIN_STEPS)))
+        step_fn = (rows_step(cfg, opt, DP_RANKS) if how == "rows" else
+                   build_train_step(cfg, m, optimizer=opt)[0])
+        params = M.init_params(cfg, seed, dev)
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = dict(losses=[], step_s=[], collective_s=[])
+        for i in range(DP_STEPS):
+            c0 = m.collective_s if m is not None else 0.0
+            t0 = time.perf_counter()
+            params, state, loss = step_fn(params, state, batch(i))
+            rec["losses"].append(float(loss))
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t0)
+            rec["collective_s"].append(
+                (m.collective_s if m is not None else 0.0) - c0)
+            if i == 0:
+                on_first(dict(params.named_parameters()), opt.first)
+                opt.first = {}
+        rec["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        on_end(dict(params.named_parameters()))
+        del params, state, opt, step_fn
+        torch.cuda.empty_cache()
+        return rec
+
+    def host(tree):
+        return {n: t.detach().to("cpu", copy=True) for n, t in tree.items()}
+
+    snap: dict = {}
+    dp = run(mesh, "dp",
+             lambda p, g: snap.update(after1=host(p), grads=host(g)),
+             lambda p: snap.update(final=host(p)))
+    dp["staged_bytes"] = mesh.staged_bytes
+    with open(os.path.join(tmp, f"train_{rank}.json"), "w") as f:
+        json.dump(dp, f)
+    dist.destroy_process_group()
+    if rank:
+        return
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    cmp: dict = {}
+
+    def rows_end(params):
+        differ = [n for n, t in params.items() if not torch.equal(
+            bits(t.detach()), bits(snap["final"][n].to(dev)))]
+        cmp.update(rows_params_differ=differ[:10],
+                   rows_params_differ_n=len(differ))
+
+    rows = run(None, "rows", lambda p, g: None, rows_end)
+    cmp.update(rows=rows, rows_losses_equal=rows["losses"] == dp["losses"])
+
+    def whole_end(params):
+        gap = 0.0
+        for n, want in params.items():
+            w = want.detach().float()
+            ulp = bf16_ulp(float(w.abs().max()))
+            if ulp:
+                got = snap["final"][n].to(dev).float()
+                gap = max(gap, float((got - w).abs().max()) / ulp)
+        cmp["final_max_gap_ulps_of_leaf_max"] = gap
+
+    one = run(None, "whole", lambda p, g: cmp.update(step_compare(
+        snap["after1"], p, snap["grads"], g)), whole_end)
+    cmp.update(one=one, losses_rel=[
+        abs(a - b) / abs(b) for a, b in zip(dp["losses"], one["losses"])])
+    with open(os.path.join(tmp, "train_compare.json"), "w") as f:
+        json.dump(cmp, f)
+
+
+def step_compare(got_params, want_params, got_grads, want_grads) -> dict:
+    """Phase 14 (b) against one process's step over the whole batch at
+    once, after the first step, on the card: each gradient leaf's gap in bf16 ulps of
+    its largest |entry| (gated at TRAIN_GRAD_ULPS), and the parameters'
+    1-ulp flips and entries more than one ulp apart outside those whose
+    gradient lies within that tolerance of zero (reported: AdamW's first
+    step divides each gradient by its own magnitude plus eps, so where the
+    clipped gradient is near eps a gradient's few-ulp gap moves the update
+    by more than a parameter's ulp)."""
+    import torch
+
+    worst_grad = 0.0
+    flips = beyond = total = 0
+    bad = []
+    for n, want in want_grads.items():
+        wg = want.float()
+        unit = bf16_ulp(float(wg.abs().max()))
+        tol = TRAIN_GRAD_ULPS * unit
+        gap = float((got_grads[n].to(wg.device).float() - wg).abs().max())
+        if unit:
+            worst_grad = max(worst_grad, gap / unit)
+        if gap > tol:
+            bad.append(f"gradient {n}: {gap} > {tol}")
+        w = want_params[n].detach()
+        g = got_params[n].to(w.device)
+        if w.dtype != torch.bfloat16:
+            continue
+        either = wg.abs() <= tol
+        diff = (g.float() - w.float()).abs()
+        ulp = 2.0 ** (torch.floor(torch.log2(
+            w.float().abs().clamp(min=2.0 ** -126))) - 7)
+        flips += int(((diff > 0) & ~either).sum())
+        beyond += int(((diff > ulp) & ~either).sum())
+        total += diff.numel()
+    return dict(worst_grad_ulps=worst_grad, flips=flips,
+                beyond_one_ulp=beyond, bf16_entries=total,
+                flip_share=flips / max(total, 1), failures=bad[:10],
+                ok=not bad)
+
+
+def pg_nccl_rank(rank, world, tmp):
+    """Phase 14 (c): one rank, an NCCL default group and a gloo group of
+    the same rank; every collective, ``compressed_psum`` (two rounds) and
+    both matmuls through each, on the card."""
+    import torch
+    import torch.distributed as dist
+
+    dev, nccl = pg_rank_mesh(torch, rank, world, tmp, "nccl", "nccl")
+    from repro_torch.compat import ProcessGroupMesh
+    from repro_torch.distributed.collectives import (allgather_matmul,
+                                                     ring_allgather_matmul)
+    from repro_torch.distributed.compression import compressed_psum
+
+    gloo = ProcessGroupMesh((1,), ("data",), dist.new_group([0],
+                                                            backend="gloo"),
+                            dev)
+    gen = torch.Generator(device=dev).manual_seed(1400)
+    f = torch.randn((1, 3, 5), generator=gen, device=dev)
+    i = torch.randint(-1000, 1000, (1, 4), generator=gen, device=dev,
+                      dtype=torch.int32)
+    g = torch.randn((1, 3, 1000), generator=gen, device=dev)
+    g2 = torch.randn((1, 3, 1000), generator=gen, device=dev)
+    x = torch.randn((1, 16, 32), generator=gen, device=dev)
+    w = torch.randn((32, 8), generator=gen, device=dev)
+
+    def ops_of(m):
+        res = {}
+        for name, t in (("f", f), ("i", i)):
+            res[f"psum_{name}"] = m.psum(t)
+            res[f"pmax_{name}"] = m.pmax(t)
+            res[f"gather_{name}"] = m.all_gather(t, axis=1)
+            res[f"exchange_{name}"] = m.exchange(t, lambda c: c)
+        mean, ef = compressed_psum(g, m)
+        mean2, ef2 = compressed_psum(g2, m, ef=ef)
+        res.update(mean=mean, ef=ef, mean2=mean2, ef2=ef2,
+                   agmm=allgather_matmul(x, w, m),
+                   ringmm=ring_allgather_matmul(x, w, m))
+        return res
+
+    a, b = ops_of(nccl), ops_of(gloo)
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    with open(os.path.join(tmp, "nccl.json"), "w") as fh:
+        json.dump(dict(compared=sorted(a), differ=differ,
+                       gloo_staged_bytes=gloo.staged_bytes,
+                       nccl_staged_bytes=nccl.staged_bytes), fh)
+    dist.destroy_process_group()
+
+
+def process_group_path(torch, report, index, x, qs_np, eps, served6, seed,
+                       device):
+    """Phase 14: the process-group mesh (see the module docstring).
+    Returns the launches of every kernel inside the search ranks."""
+    import shutil
+    import tempfile
+
+    from repro_torch import sharded_search as ss
+    from repro_torch.compat import make_mesh
+
+    out: dict = {}
+    t_path = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    try:
+        # phase 6's LocalMesh results on the same index, queries and eps
+        mesh = make_mesh((SHARDS,), ("data",), device=device)
+        q16 = torch.as_tensor(qs_np[:LANES], device=device)
+        want: dict = {}
+        for merge in ("tournament", "allgather"):
+            r = ss.sharded_topk(index, q16, K, SH_L, mesh, merge=merge,
+                                with_expansions=True)
+            for name, a in zip(("ids", "scores", "expansions"), r):
+                want[f"topk_{merge}_{name}"] = a.cpu().numpy()
+        r = ss.sharded_progressive_diverse(
+            index, x, qs_np[:LANES], K, eps, mesh, K0=K0, L_factor=L_FACTOR,
+            max_rounds=MAX_ROUNDS, resume="beam")
+        for name, a in zip(("ids", "scores", "certified", "K_final"), r):
+            want[f"progressive_{name}"] = np.asarray(a)
+        want.update(
+            sched_ids=np.stack([r.ids for r in served6]),
+            sched_scores=np.stack([r.scores for r in served6]),
+            sched_certified=np.array([r.stats.certified for r in served6]),
+            sched_K_final=np.array([r.stats.K_final for r in served6]),
+            sched_expansions=np.array([r.stats.expansions
+                                       for r in served6]))
+        t0 = time.perf_counter()
+        host = ss.index_to_host(index)
+        for rank in range(SHARDS):
+            shard = ss.local_shard(host, rank)
+            np.savez(os.path.join(tmp, f"shard{rank}.npz"), **{
+                k: shard[k] for k in ("vectors", "neighbors", "entries",
+                                      "bases")})
+        np.save(os.path.join(tmp, "x.npy"), x.cpu().numpy())
+        np.savez(os.path.join(tmp, "queries.npz"), qs=qs_np,
+                 eps=np.asarray(eps))
+        out["write_s"] = time.perf_counter() - t0
+        del host
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (a) the search over PG_RANKS gloo ranks on the card
+        t0 = time.perf_counter()
+        pg_spawn(torch, pg_search_rank, SHARDS, tmp, "gloo")
+        a = pg_search_results(tmp, "gloo", want)
+        a["wall_s"] = time.perf_counter() - t0
+        out["a"] = a
+        log("phase 14 (a) " + json.dumps({k: v for k, v in a.items()
+                                          if k != "ranks"}))
+        for r, rk in enumerate(a["ranks"]):
+            log(f"phase 14 (a) rank {r}: " + json.dumps(rk))
+
+        # (b) data-parallel training on the card
+        t0 = time.perf_counter()
+        pg_spawn(torch, pg_train_rank, DP_RANKS, tmp, seed)
+        out["b"] = pg_train_results(tmp)
+        out["b"]["wall_s"] = time.perf_counter() - t0
+        log("phase 14 (b) " + json.dumps(out["b"]))
+
+        # (c) NCCL at world size 1; across cards where there are enough
+        t0 = time.perf_counter()
+        pg_spawn(torch, pg_nccl_rank, 1, tmp)
+        with open(os.path.join(tmp, "nccl.json")) as f:
+            c = json.load(f)
+        if c["differ"]:
+            raise AssertionError("phase 14 (c): NCCL at world size 1 "
+                                 f"differs from gloo in {c['differ']}")
+        cards = torch.cuda.device_count()
+        if cards >= SHARDS:
+            pg_spawn(torch, pg_search_rank, SHARDS, tmp, "nccl")
+            c["nccl_across_cards"] = pg_search_results(tmp, "nccl", want)
+        else:
+            c["nccl_across_cards"] = (f"not run ({cards} card"
+                                      f"{'s' if cards != 1 else ''})")
+        c["wall_s"] = time.perf_counter() - t0
+        out["c"] = c
+        log("phase 14 (c) " + json.dumps({k: v for k, v in c.items()
+                                          if k != "nccl_across_cards"}))
+        log(f"nccl_across_cards: {c['nccl_across_cards']}"
+            if isinstance(c["nccl_across_cards"], str) else
+            "nccl_across_cards: " + json.dumps(
+                {k: v for k, v in c["nccl_across_cards"].items()
+                 if k != "ranks"}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {name: sum(rk["launches"][name] for rk in out["a"]["ranks"])
+                for name in out["a"]["ranks"][0]["launches"]}
+    missing = [k for k in PATH14_KERNELS
+               if any(rk["launches"][k] == 0 for rk in out["a"]["ranks"])]
+    if missing:
+        raise AssertionError(f"phase 14: kernels not launched inside every "
+                             f"rank: {missing}")
+    out.update(path_s=time.perf_counter() - t_path, launches=launches)
+    report["process_group_path"] = out
+    return launches
+
+
+def pg_search_results(tmp, backend, want) -> dict:
+    """The ranks' results of (a), each bit-equal to ``want`` (rank 0's
+    scheduler results, every rank's searches)."""
+    ranks, got = [], []
+    for r in range(SHARDS):
+        with open(os.path.join(tmp, f"search{backend}_{r}.json")) as f:
+            ranks.append(json.load(f))
+        with np.load(os.path.join(tmp, f"search{backend}_{r}.npz")) as f:
+            got.append(dict(f))
+    for r, g in enumerate(got):
+        for key, w in want.items():
+            if key.startswith("sched_") and r:
+                continue
+            have = g[key]
+            same = (have.shape == w.shape and np.array_equal(
+                have.view(np.uint32) if have.dtype == np.float32 else have,
+                w.view(np.uint32) if w.dtype == np.float32 else w))
+            if not same:
+                raise AssertionError(f"phase 14 (a) {backend} rank {r}: "
+                                     f"{key} differs from phase 6's "
+                                     "LocalMesh result")
+    lead = ranks[0]
+    return dict(backend=backend, ranks_n=SHARDS, queries=len(want[
+        "sched_ids"]), qps=lead["qps"], p50_s=lead["p50_s"],
+        p99_s=lead["p99_s"], serve_s=lead["serve_s"], pumps=lead["pumps"],
+        certified_share=float(want["sched_certified"].mean()),
+        bit_equal_to_phase6=sorted(want), ranks=ranks)
+
+
+def pg_train_results(tmp) -> dict:
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(tmp, f"train_{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(tmp, "train_compare.json")) as f:
+        cmp = json.load(f)
+    if not cmp["rows_losses_equal"] or cmp["rows_params_differ_n"]:
+        raise AssertionError(
+            "phase 14 (b): data parallel against one process over the same "
+            f"row blocks: losses {ranks[0]['losses']} against "
+            f"{cmp['rows']['losses']}, {cmp['rows_params_differ_n']} "
+            f"parameters differ ({cmp['rows_params_differ']})")
+    rel = max(cmp["losses_rel"])
+    if rel > DP_WHOLE_LOSS_RTOL or not cmp["ok"]:
+        raise AssertionError(
+            f"phase 14 (b): data parallel against one process's whole "
+            f"batch: loss gap {rel} (tol {DP_WHOLE_LOSS_RTOL}), "
+            f"{cmp['failures']}")
+    lead = ranks[0]
+    steps_ms = [s * 1e3 for s in lead["step_s"]]
+    share = [c / s for c, s in zip(lead["collective_s"], lead["step_s"])]
+    return dict(
+        arch=TRAIN_ARCH, ranks_n=DP_RANKS, global_batch=TRAIN_B, seq=TRAIN_S,
+        steps=DP_STEPS, losses=lead["losses"],
+        one_process_losses=cmp["one"]["losses"],
+        loss_rel_gaps=cmp["losses_rel"], ms_per_step=steps_ms,
+        ms_per_step_median_after_first=float(np.median(steps_ms[1:])),
+        allreduce_share=share,
+        one_process_ms_per_step=[s * 1e3 for s in cmp["one"]["step_s"]],
+        peak_allocated_bytes=[rk["peak_allocated_bytes"] for rk in ranks],
+        one_process_peak_allocated_bytes=cmp["one"]["peak_allocated_bytes"],
+        staged_bytes=[rk["staged_bytes"] for rk in ranks],
+        rows_bit_equal=True,
+        rows_ms_per_step=[x * 1e3 for x in cmp["rows"]["step_s"]],
+        worst_grad_ulps=cmp["worst_grad_ulps"], flips=cmp["flips"],
+        beyond_one_ulp=cmp["beyond_one_ulp"],
+        bf16_entries=cmp["bf16_entries"],
+        final_max_gap_ulps_of_leaf_max=cmp["final_max_gap_ulps_of_leaf_max"])
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4384,7 +4974,11 @@ def main() -> int:
     elaunches = phase("8", elastic_path, torch, report, db6,
                       graph.vectors.cpu().numpy(), qs_np, eps, served6,
                       args.seed, device)
+    index6 = db6.index.sharded
     del db6
+    glaunches = phase("14", process_group_path, torch, report, index6,
+                      graph.vectors, qs_np, eps, served6, args.seed, device)
+    del index6
     plaunches, hist9 = phase("9", per_query_path, torch, report, graph,
                              qs_np, eps, served4)
     hists = [report["main_path"]["widths"], report["sharded_path"]["widths"]]
@@ -4406,14 +5000,14 @@ def main() -> int:
                         / prof["sim_gather_launches"]
                         if prof["sim_gather_launches"] else None)
     row["device_us_kept"] = prof["sim_gather_launches"]
-    # each kernel's launches over the ten paths' runs (each path's own
-    # counts are in chip_smoke.json)
+    # each kernel's launches over the eleven paths' runs (each path's own
+    # counts are in chip_smoke.json; phase 14's are its ranks' sums)
     kernels = []
     for name, row in timings.items():
         total = (launches[name] + qlaunches[name] + slaunches[name]
                  + flaunches[name] + rlaunches[name] + falaunches[name]
                  + tlaunches[name] + elaunches[name]
-                 + plaunches[name] + hlaunches[name])
+                 + glaunches[name] + plaunches[name] + hlaunches[name])
         kernels.append(dict(row, launches=int(total)))
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - T0

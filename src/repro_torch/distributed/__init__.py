@@ -1,3 +1,4 @@
-"""Moving serving state between meshes (port of ``repro.distributed``'s
-``elastic`` module; the model-parameter sharding, collectives and gradient
-compression belong to the training stack, ROADMAP queue 1 G)."""
+"""Distributed pieces (port of ``repro.distributed``): the sharding rules
+(``sharding``), the collective matmuls (``collectives``), gradient
+compression (``compression``) and moving state between meshes
+(``elastic``)."""

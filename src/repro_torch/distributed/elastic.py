@@ -17,12 +17,19 @@ tree itself plus the target shard count:
     idx4 = reshard_tree(idx2, new_mesh, all_vectors=x)
     st4 = reshard_tree(st2, new_mesh, capacity=cap4)
 
-The reference's third family, model parameters placed by name-based
-sharding rules, belongs to the training stack (ROADMAP queue 1 G).
+The third family is model parameters (the reference's params tree of
+whole leaves, as ``models.model.stack`` lays them out): on a process-group
+mesh each rank keeps its slice of every leaf under the target mesh's
+``distributed.sharding.param_spec_tree`` (``cfg=`` keys the rules). With
+``old_mesh=`` the leaves are this rank's slices under the old mesh's specs,
+gathered whole first, so a tree moves from one mesh shape to another over
+the same ranks.
 """
 from __future__ import annotations
 
 from typing import Any
+
+import torch
 
 
 def plan(old_mesh, new_mesh) -> dict:
@@ -41,14 +48,15 @@ def plan(old_mesh, new_mesh) -> dict:
 def reshard_tree(tree: Any, new_mesh=None, cfg=None, spec_fn=None, *,
                  axis: str = "data", shards: int | None = None,
                  all_vectors=None, M: int | None = None,
-                 builder: str = "knng", capacity: int | None = None) -> Any:
+                 builder: str = "knng", capacity: int | None = None,
+                 old_mesh=None) -> Any:
     """Re-place ``tree`` onto ``new_mesh`` (or a bare ``shards=`` count).
 
     ``all_vectors`` / ``M`` / ``builder`` go to a ``ShardedIndex``
     (quantized corpora, non-default graph builds); ``capacity`` to a
     ``ShardedSearchState`` (the target queue width, default the current
-    one). ``cfg`` / ``spec_fn`` belong to the model-parameter family, which
-    raises ``NotImplementedError``."""
+    one). ``cfg`` / ``spec_fn`` / ``old_mesh`` belong to the
+    model-parameter family (see the module's docstring)."""
     from repro_torch.sharded_search.search import (ShardedIndex,
                                                    ShardedSearchState,
                                                    migrate_sharded_state,
@@ -64,7 +72,29 @@ def reshard_tree(tree: Any, new_mesh=None, cfg=None, spec_fn=None, *,
     if isinstance(tree, ShardedSearchState):
         return migrate_sharded_state(tree, shards, capacity, mesh=new_mesh,
                                      axis=axis)
-    del cfg, spec_fn
-    raise NotImplementedError(
-        "resharding a model-parameter tree needs sharding rules over a "
-        "process-group mesh, which are not ported yet — ROADMAP queue 1 D")
+    if new_mesh is None:
+        raise ValueError("resharding a model-param tree needs new_mesh= "
+                         "(a process-group mesh; the rank keeps its slices)")
+    if cfg is None:
+        raise ValueError("resharding a model-param tree needs cfg= "
+                         "(the sharding rules key on it)")
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.model import abstract_params
+
+    layout = sh.param_layout(abstract_params(cfg))
+    spec_fn = spec_fn or sh.param_spec_tree
+    new_specs = spec_fn(cfg, layout, new_mesh)
+    if old_mesh is not None:
+        tree = _zip(tree, spec_fn(cfg, layout, old_mesh),
+                    lambda x, s: sh.gather_leaf(x, s, old_mesh))
+    return _zip(tree, new_specs,
+                lambda x, s: sh.shard_leaf(torch.as_tensor(x), s, new_mesh))
+
+
+def _zip(tree: dict, specs: dict, fn) -> dict:
+    """``fn(leaf, spec)`` over two trees of the same keys."""
+    if set(tree) != set(specs):
+        raise ValueError(f"the tree's keys {sorted(tree)} are not the "
+                         f"params' {sorted(specs)}")
+    return {k: _zip(v, specs[k], fn) if isinstance(v, dict)
+            else fn(v, specs[k]) for k, v in tree.items()}

@@ -57,12 +57,15 @@ def forward(cfg: ModelConfig, params, batch, *, remat: bool = True,
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True,
-            aux_weight: float = 0.01, opts: dict | None = None):
+            aux_weight: float = 0.01, opts: dict | None = None,
+            label_count: torch.Tensor | None = None):
     """Mean next-token cross entropy over the labels >= 0, plus
     ``aux_weight`` times the MoE's load-balance loss: the log-sum-exp of
     the float32 logits less the label's logit. The label's logit is
     gathered, which is exact: it is the value the reference's one-hot sum
-    adds to zeros."""
+    adds to zeros. ``label_count`` replaces the denominator (this batch's
+    count of labels >= 0): a data-parallel rank passes the global batch's,
+    so the ranks' losses sum to the global batch's mean."""
     logits, aux = forward(cfg, params, batch, remat=remat, opts=opts)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = labels >= 0
@@ -70,7 +73,8 @@ def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True,
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     nll = torch.where(mask, lse - picked, 0.0)
-    loss = nll.sum() / mask.sum().clamp(min=1)
+    count = mask.sum() if label_count is None else label_count
+    loss = nll.sum() / count.clamp(min=1)
     return loss + aux_weight * aux
 
 

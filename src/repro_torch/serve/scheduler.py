@@ -46,6 +46,14 @@ lane-separable, so admission order cannot leak between requests (this is
 also why switching admission *policies* can change latencies but never
 results). ``tests/test_torch_scheduler.py`` holds the scheduler against the
 reference's. See ``docs/ARCHITECTURE.md`` for the full contract map.
+
+Over a process group (a ``ShardedEngine`` on a ``compat.ProcessGroupMesh``,
+one shard per rank) the clock and the policies decide, so only rank 0
+decides: its scheduler drives the engine through :class:`RankZeroBackend`,
+which broadcasts each pump step's admit / recycle operations (and the
+prewarm) to the other ranks before it steps, and the other ranks apply
+them in :func:`follow` and step with it. Results and ``latency_stats`` are
+rank 0's; :meth:`LaneScheduler.close` ends the followers' loops.
 """
 from __future__ import annotations
 
@@ -97,6 +105,92 @@ class RequestDeferred(RuntimeError):
     exceeds its SLO budget but whose service alone fits — once backlog
     drains, a retried submit is expected to admit. The request was *not*
     enqueued; ``total_deferred`` counts these decisions."""
+
+
+class RankZeroBackend:
+    """Rank 0's side of a backend that steps across a process group.
+
+    ``admit`` and ``recycle`` run on the local engine and are queued; each
+    ``step`` broadcasts the queue (then the step itself) to the other
+    ranks, which apply the same operations in :func:`follow` before they
+    step, so every rank's engine holds the same admissions when the round's
+    collectives run. ``prewarm`` is broadcast and run the same way.
+    Everything else is read from the local engine."""
+
+    def __init__(self, backend):
+        self.inner = backend
+        self.mesh = backend.mesh
+        self._ops: list[tuple] = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __setattr__(self, name, value):
+        if name in ("inner", "mesh", "_ops"):
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self.inner, name, value)
+
+    def _send(self, *ops) -> None:
+        self.mesh.broadcast_object(self._ops + list(ops), src=0)
+        self._ops = []
+
+    def admit(self, lane: int, request: LaneRequest) -> None:
+        self.inner.admit(lane, request)
+        self._ops.append(("admit", int(lane), dict(
+            q=np.asarray(request.q, np.float32), k=int(request.k),
+            eps=float(request.eps), ef=int(request.ef),
+            method=request.method, max_K=request.max_K)))
+
+    def recycle(self, lane: int) -> None:
+        self.inner.recycle(lane)
+        self._ops.append(("recycle", int(lane)))
+
+    def prewarm(self, **kw):
+        self._send(("prewarm", kw))
+        return self.inner.prewarm(**kw)
+
+    def step(self):
+        self._send(("step",))
+        return self.inner.step()
+
+    def close(self) -> None:
+        """Send the pending operations and the end of the followers'
+        loops."""
+        self._send(("stop",))
+
+
+def follow(backend) -> int:
+    """The loop of a rank other than 0: apply rank 0's broadcast
+    operations to ``backend`` (a ``ShardedEngine`` on the same process
+    group) and step with it, until rank 0's scheduler closes. Returns the
+    steps taken."""
+    mesh = backend.mesh
+    if mesh.rank == 0:
+        raise ValueError("rank 0 decides: it runs the LaneScheduler")
+    steps = 0
+    while True:
+        for op in mesh.broadcast_object(None, src=0):
+            kind = op[0]
+            if kind == "admit":
+                backend.admit(op[1], LaneRequest(**op[2]))
+            elif kind == "recycle":
+                backend.recycle(op[1])
+            elif kind == "prewarm":
+                backend.prewarm(**op[1])
+            elif kind == "step":
+                backend.step()
+                backend.harvest()
+                steps += 1
+            elif kind == "stop":
+                return steps
+            else:
+                raise ValueError(f"unknown operation {kind!r} from rank 0")
+
+
+def _spans_ranks(backend) -> bool:
+    mesh = getattr(backend, "mesh", None)
+    return mesh is not None and getattr(mesh, "local_size", 1) != mesh.size
 
 
 @dataclasses.dataclass(eq=False)
@@ -317,6 +411,16 @@ class LaneScheduler:
                 raise ValueError(
                     f"{overridden} are backend-construction parameters — "
                     "configure them on the backend, not the scheduler")
+        if _spans_ranks(backend):
+            if backend.mesh.rank != 0:
+                raise ValueError(
+                    f"rank {backend.mesh.rank} of the process group follows "
+                    "rank 0's scheduler: call serve.scheduler.follow(backend)")
+            if elastic:
+                raise NotImplementedError(
+                    "elastic= over a process-group mesh: rescaling across "
+                    "group sizes is ROADMAP queue 1 D.2")
+            backend = RankZeroBackend(backend)
         self.backend = backend
         self.engine = backend   # legacy alias
         self.num_lanes = int(backend.num_lanes)
@@ -664,6 +768,12 @@ class LaneScheduler:
             self.policy.on_complete(req)
             done.append(req)
         return done
+
+    def close(self) -> None:
+        """End the other ranks' :func:`follow` loops (a backend across a
+        process group); nothing to do on one process."""
+        if isinstance(self.backend, RankZeroBackend):
+            self.backend.close()
 
     def drain(self) -> list[Request]:
         """Pump until the queues (read and write) and all lanes are empty."""

@@ -1,5 +1,6 @@
-"""Sharded diverse search over P shards on one device, with elastic
-resharding between shard counts (port of ``repro.sharded_search``)."""
+"""Sharded diverse search over P shards on one device or one shard per
+rank of a process group, with elastic resharding between shard counts on
+one device (port of ``repro.sharded_search``)."""
 from repro_torch.sharded_search.engine import ShardedEngine
 from repro_torch.sharded_search.search import (ShardedIndex, ShardedSearchState,
                                                beam_state_capacity,
@@ -7,6 +8,7 @@ from repro_torch.sharded_search.search import (ShardedIndex, ShardedSearchState,
                                                exact_rerank_frontier,
                                                index_from_host, index_to_host,
                                                init_sharded_state,
+                                               local_shard,
                                                migrate_sharded_state,
                                                reshard_index,
                                                sharded_diverse_resume,
@@ -19,7 +21,8 @@ from repro_torch.sharded_search.search import (ShardedIndex, ShardedSearchState,
 __all__ = ["ShardedIndex", "ShardedSearchState", "ShardedEngine",
            "beam_state_capacity", "build_sharded_index",
            "exact_rerank_frontier", "index_from_host", "index_to_host",
-           "init_sharded_state", "migrate_sharded_state", "reshard_index",
+           "init_sharded_state", "local_shard", "migrate_sharded_state",
+           "reshard_index",
            "sharded_diverse_resume", "sharded_diverse_search",
            "sharded_progressive_diverse", "sharded_topk",
            "sharded_topk_resume", "state_from_host"]

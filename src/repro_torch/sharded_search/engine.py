@@ -34,6 +34,15 @@ load and runs the target's dispatch ladder once; ``rescale`` then moves the
 corpus and every in-flight lane to it between rounds (contract 16): each
 lane's queues are re-bucketed by global id on the device, so it resumes its
 ladder without redoing expansions, and the lane count may follow the mesh.
+
+Over a process group (``compat.ProcessGroupMesh``, one shard per rank)
+every rank runs this host state machine on the same admissions (SPMD): the
+buckets, budgets and certificates depend on the admissions and on the
+replicated merged candidates only, so every rank dispatches the same
+rounds and reaches the same results. ``serve.scheduler`` keeps the ranks'
+admissions equal (rank 0 decides, the others follow). Rescaling across
+group sizes is ROADMAP queue 1 D.2: ``prepare_rescale`` and ``rescale``
+refuse such a mesh.
 """
 from __future__ import annotations
 
@@ -218,7 +227,8 @@ class ShardedEngine:
             self.fresh[idx] = False
             # cumulative expansions since each lane's seed: its carried
             # step counters summed over the shards
-            steps = self.beam_state.steps.sum(dim=0).cpu().numpy()
+            steps = self.mesh.psum(self.beam_state.steps,
+                                   self.axis).cpu().numpy()
             self.expansions[idx] = steps[idx]
         else:
             ids, scores, cert, exp = sharded_diverse_search(
@@ -341,6 +351,7 @@ class ShardedEngine:
         current one): serving capacity follows the mesh. A lane shrink
         applies at ``rescale`` only when the tail lanes are free then.
         """
+        self._check_local("prepare_rescale")
         if shards & (shards - 1) or shards < 1:
             raise ValueError(f"shards={shards} must be a power of two")
         B_t = int(num_lanes or self.B)
@@ -418,6 +429,7 @@ class ShardedEngine:
         ``shards``; raises if the target was never prepared."""
         if shards == self.index.num_shards:
             return False
+        self._check_local("rescale")
         target = self._rescale_targets.get(shards)
         if target is None:
             raise RuntimeError(
@@ -439,6 +451,12 @@ class ShardedEngine:
         self.mesh = mesh
         self.signatures.note("rescale", shards)
         return True
+
+    def _check_local(self, what: str) -> None:
+        if self.mesh.local_size != self.mesh.size:
+            raise NotImplementedError(
+                f"{what} over a process-group mesh: elastic rescaling across "
+                "group sizes is ROADMAP queue 1 D.2")
 
     def _resize_lanes(self, B_new: int) -> None:
         """Pad (grow) or cut (shrink) every per-lane host array to

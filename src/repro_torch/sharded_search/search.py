@@ -19,6 +19,16 @@ lane) pairs step in one lockstep loop over the stacked corpus
 the loop adds each pair's row offset where it reads rows. Each pair ends
 where its own loop would, so results are the reference's pair by pair.
 
+Over a process group (``compat.ProcessGroupMesh``, one shard per rank) the
+same code runs on a leading axis of one: each rank's index holds its own
+shard (``local_shard`` of ``index_to_host``, with the global shard count
+and its base), its beams run its B pairs, the tournament is the
+reference's butterfly (log2(P) rounds, each an ``exchange`` with rank
+``me ^ stride`` and one two-run ``kops.topk_merge`` launch), and the
+all-gather merge and the expansion counts go through the group. The
+merged candidates, and everything after them, are replicated on every
+rank; ``all_vectors`` stays whole on each.
+
 ``sharded_topk`` / ``sharded_diverse_search`` are the scratch half (one
 fixed budget, no state); ``ShardedSearchState`` with
 ``sharded_topk_resume`` / ``sharded_diverse_resume`` carry each lane's
@@ -72,9 +82,17 @@ class ShardedIndex:
     metric: str = "l2"
     scheme: str | None = None
     scale_rows: int = 8
+    #: the global shard count when this index holds only some of them (a
+    #: rank's shard of a process-group mesh); 0: it holds every shard
+    total_shards: int = 0
 
     @property
     def num_shards(self) -> int:
+        return self.total_shards or self.neighbors.shape[0]
+
+    @property
+    def local_shards(self) -> int:
+        """Shards stacked here: all of them, or a rank's one."""
         return self.neighbors.shape[0]
 
     @property
@@ -111,8 +129,25 @@ def index_to_host(index: ShardedIndex) -> dict:
     ``scheme`` and ``scale_rows``: the dict ``index_from_host`` reads."""
     host = {f: (None if getattr(index, f) is None
                 else getattr(index, f).cpu().numpy()) for f in _LEAVES}
-    return dict(host, metric=index.metric, scheme=index.scheme,
-                scale_rows=int(index.scale_rows))
+    out = dict(host, metric=index.metric, scheme=index.scheme,
+               scale_rows=int(index.scale_rows))
+    if index.total_shards:
+        out["total_shards"] = int(index.total_shards)
+    return out
+
+
+def local_shard(host: dict, rank: int) -> dict:
+    """Shard ``rank`` of a whole index's host dict (``index_to_host``): its
+    per-shard leaves on a leading axis of one, the PQ codebooks (shared)
+    whole, and the global shard count, for the rank that serves it."""
+    p = int(np.asarray(host["neighbors"]).shape[0])
+    if not 0 <= rank < p:
+        raise ValueError(f"no shard {rank} in an index of {p}")
+    out = {f: (None if host.get(f) is None or f == "codebooks"
+               else np.asarray(host[f])[rank:rank + 1]) for f in _LEAVES}
+    out["codebooks"] = host.get("codebooks")
+    return dict(out, metric=host["metric"], scheme=host.get("scheme"),
+                scale_rows=int(host.get("scale_rows", 8)), total_shards=p)
 
 
 def index_from_host(host: dict, device=None) -> ShardedIndex:
@@ -130,7 +165,8 @@ def index_from_host(host: dict, device=None) -> ShardedIndex:
                   .contiguous()) for f in _LEAVES}
     return ShardedIndex(**leaves, metric=host["metric"],
                         scheme=host.get("scheme"),
-                        scale_rows=int(host.get("scale_rows", 8)))
+                        scale_rows=int(host.get("scale_rows", 8)),
+                        total_shards=int(host.get("total_shards", 0)))
 
 
 def _corpus_parts(index: ShardedIndex):
@@ -142,7 +178,7 @@ def _corpus_parts(index: ShardedIndex):
     are shared). An int8 shard's scales cover blocks of ``scale_rows`` of
     its own rows, so its codes are padded to whole blocks first; the
     stacked scales then index the stacked rows."""
-    p, ns = index.num_shards, index.shard_size
+    p, ns = index.local_shards, index.shard_size
     if index.scheme is None:
         return index.vectors.reshape(p * ns, -1), ns
     if index.scheme == "int8":
@@ -254,6 +290,11 @@ def reshard_index(index: ShardedIndex, num_shards: int, all_vectors=None, *,
     index (whose ``vectors`` is None). ``M`` defaults to half the stored
     neighbour width (the builder's ``M0 = 2 * M``).
     """
+    if index.total_shards:
+        raise NotImplementedError(
+            "resharding a rank's shard of a process-group mesh moves rows "
+            "between ranks: ROADMAP queue 1 D.2 (elastic rescaling across "
+            "group sizes)")
     p_old, ns_old = index.num_shards, index.shard_size
     n = p_old * ns_old
     if num_shards & (num_shards - 1) or num_shards < 1:
@@ -311,16 +352,19 @@ def reshard_index(index: ShardedIndex, num_shards: int, all_vectors=None, *,
 # ------------------------------------------------------ shard-local beams ----
 
 def _check_mesh(index: ShardedIndex, mesh, axis: str) -> None:
-    if axis not in mesh.axis_names or mesh.size != index.num_shards:
-        raise ValueError(f"index of {index.num_shards} shards on a mesh of "
-                         f"{mesh.size} along {mesh.axis_names}, axis {axis!r}")
+    if (axis not in mesh.axis_names or mesh.size != index.num_shards
+            or mesh.local_size != index.local_shards):
+        raise ValueError(f"index of {index.num_shards} shards "
+                         f"({index.local_shards} here) on a mesh of "
+                         f"{mesh.size} ({mesh.local_size} here) along "
+                         f"{mesh.axis_names}, axis {axis!r}")
 
 
 def _pairs(index: ShardedIndex, qs: torch.Tensor):
     """The stacked graph, each (shard, lane) pair's query and row offset,
     pair ``s * B + b`` for lane b on shard s."""
     corpus, stride = _corpus_parts(index)
-    p, dev = index.num_shards, index.device
+    p, dev = index.local_shards, index.device
     graph = make_flat_graph(corpus, index.neighbors.reshape(
         p * index.shard_size, -1), None, 0, index.metric, device=dev)
     B = qs.shape[0]
@@ -336,7 +380,7 @@ def _seed(index: ShardedIndex, graph, qp: torch.Tensor, offsets, capacity):
     R = qp.shape[0]
     dev = index.device
     entry = index.entries.to(torch.int64).repeat_interleave(
-        R // index.num_shards)
+        R // index.local_shards)
     rows = (entry + offsets)[:, None]
     if quant.is_quantized(graph.vectors):
         qprep = quant.prepare_query(graph.vectors, qp, index.metric)
@@ -356,8 +400,8 @@ def _seed(index: ShardedIndex, graph, qp: torch.Tensor, offsets, capacity):
 
 def _harvest(index: ShardedIndex, queue: qmod.Queue, K: int):
     """Each pair's first K entries with global ids [P, B, K], padded with
-    (-1, -inf) past the queue's capacity."""
-    p = index.num_shards
+    (-1, -inf) past the queue's capacity (P the shards stacked here)."""
+    p = index.local_shards
     h = min(K, queue.capacity)
     ids, scores = queue.ids[:, :h], queue.scores[:, :h]
     base = index.bases.to(torch.int64).repeat_interleave(ids.shape[0] // p)
@@ -379,18 +423,30 @@ def _shard_beams(index: ShardedIndex, qs: torch.Tensor, k: int, L: int):
     state = bs.run_search(graph, qp, state, stable_limit=L,
                           row_offset=offsets)
     ids, scores = _harvest(index, state.queue, k)
-    return ids, scores, state.steps.reshape(index.num_shards, -1)
+    return ids, scores, state.steps.reshape(index.local_shards, -1)
 
 
-def _tournament_merge(ids, scores):
-    """Butterfly merge of the shards' lists [P, B, k]: shard 0's global
-    top-k after log2(P) rounds. The shards' lists already lie in one tensor,
-    so one ``topk_tournament`` call (one launch) runs every round, each lane
-    reading its partners' lists itself: no ``ppermute``."""
-    p = ids.shape[0]
+def _tournament_merge(ids, scores, mesh):
+    """Butterfly merge of the shards' lists [S, B, k]: the global top-k
+    after log2(P) rounds. On one device the shards' lists already lie in
+    one tensor, so one ``topk_tournament`` call (one launch) runs every
+    round, each lane reading its partners' lists itself. Over a process
+    group each round exchanges the rank's list with rank ``me ^ stride``
+    (ids and score bits in one message) and merges the two runs with one
+    ``topk_merge`` launch, as the reference's rounds of ``ppermute``."""
+    p = mesh.size
     if p & (p - 1):
         raise ValueError("tournament merge needs power-of-two shards")
-    return kops.topk_tournament(ids, scores)
+    if ids.shape[0] == p:
+        return kops.topk_tournament(ids, scores)
+    k = ids.shape[-1]
+    for r in range(p.bit_length() - 1):
+        stride = 1 << r
+        wire = torch.cat([ids, scores.view(torch.int32)], -1)
+        other = mesh.exchange(wire, lambda c, s=stride: c ^ s)
+        ids, scores = kops.topk_merge(ids, scores, other[..., :k],
+                                      other[..., k:].view(torch.float32))
+    return ids[0], scores[0]
 
 
 def _allgather_merge(ids, scores, mesh, k: int):
@@ -402,10 +458,10 @@ def _allgather_merge(ids, scores, mesh, k: int):
 
 
 def _merge(ids, scores, mesh, merge: str, k: int):
-    if ids.shape[0] == 1:
+    if mesh.size == 1:
         return ids[0], scores[0]
     if merge == "tournament":
-        return _tournament_merge(ids, scores)
+        return _tournament_merge(ids, scores, mesh)
     if merge == "allgather":
         return _allgather_merge(ids, scores, mesh, k)
     raise ValueError(f"unknown merge {merge!r}")
@@ -468,7 +524,7 @@ def init_sharded_state(index: ShardedIndex, num_lanes: int, capacity: int,
     """Empty (all lanes unseeded) state on the index's device."""
     if mesh is not None:
         _check_mesh(index, mesh, axis)
-    return _empty_state(index.num_shards, index.shard_size, num_lanes,
+    return _empty_state(index.local_shards, index.shard_size, num_lanes,
                         capacity, index.device)
 
 
@@ -512,6 +568,11 @@ def migrate_sharded_state(state: ShardedSearchState, num_shards: int,
     ``num_lanes`` resizes the lane axis: new lanes are empty (unseeded), a
     smaller count keeps lanes ``[:num_lanes]`` and drops the rest.
     """
+    if mesh is not None and mesh.local_size != mesh.size:
+        raise NotImplementedError(
+            "migrating beam state across a process group moves queue "
+            "entries between ranks: ROADMAP queue 1 D.2 (elastic rescaling "
+            "across group sizes)")
     ids, scores, stable, visited, steps = state
     p_old, B, C_old = ids.shape
     ns_old = visited.shape[-1]
@@ -591,7 +652,7 @@ def _resume_beams(index: ShardedIndex, state: ShardedSearchState, qs,
     the stable limit ``L`` with a step budget of ``4 L + 64`` on top of its
     steps so far. Returns its shards' top-K [P, g, K] and its new state
     leaves [P, g, ...]."""
-    p, g = index.num_shards, lanes.shape[0]
+    p, g = index.local_shards, lanes.shape[0]
     graph, qp, offsets = _pairs(index, qs)
     cur = [leaf[:, lanes].reshape(p * g, *leaf.shape[2:]) for leaf in state]
     seeded = _seed(index, graph, qp, offsets, state.capacity)

@@ -13,7 +13,14 @@ monitor:
     (injects a crash at a chosen step).
 
 Parameters are made by the port's seeded init (``seed``) on ``device``
-(``cuda`` unless given). ``mesh`` is None or a mesh of one device.
+(``cuda`` unless given). ``mesh`` is None, a mesh of one device, or a
+``(data, 1)`` process-group mesh (``compat.make_process_mesh``): every
+rank then draws the same ``SyntheticLM`` global batch and the train step
+takes its rows; rank 0 writes the checkpoints and logs, and every rank
+restores them (a barrier after each save completes, so no rank reads a
+step before it is whole). A fault must reach every rank at the same step
+(``fault_hook`` is called on each), as the collectives of a step are
+entered by all ranks or none.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.steps import build_train_step, data_parallel_size
 from repro_torch.models import model as M
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import Prefetcher, SyntheticLM
@@ -56,6 +63,15 @@ def train(cfg: ModelConfig, mesh=None, *, steps: int, global_batch: int,
     device = resolve_device(device)
     opt = optimizer or AdamW(lr=1e-3)
     step_fn, _ = build_train_step(cfg, mesh, optimizer=opt)
+    ranks = data_parallel_size(mesh)
+    leader = ranks == 1 or mesh.rank == 0
+
+    def settle():
+        """Rank 0's checkpoint writes finished, seen by every rank."""
+        saver.wait()
+        opt_saver.wait()
+        if ranks > 1:
+            mesh.barrier()
 
     def fresh_state():
         params = M.init_params(cfg, seed, device).requires_grad_(True)
@@ -109,11 +125,11 @@ def train(cfg: ModelConfig, mesh=None, *, steps: int, global_batch: int,
                     stragglers.append((step, dt))
                 losses.append(loss)
                 step_s.append(dt)
-                if log_every and step % log_every == 0:
+                if leader and log_every and step % log_every == 0:
                     print(f"step {step:6d} loss {loss:.4f} {dt*1e3:.0f}ms",
                           flush=True)
                 step += 1
-                if ckpt_every and step % ckpt_every == 0:
+                if leader and ckpt_every and step % ckpt_every == 0:
                     saver.save(step, M.stack(params.named_parameters()))
                     opt_saver.save(step, opt_state_to_host(opt_state))
             except Exception as e:  # noqa: BLE001 — restart-from-checkpoint
@@ -122,8 +138,7 @@ def train(cfg: ModelConfig, mesh=None, *, steps: int, global_batch: int,
                       f"restart {restarts}/{max_restarts}", flush=True)
                 if restarts > max_restarts:
                     raise
-                saver.wait()
-                opt_saver.wait()
+                settle()
                 del params, opt_state
                 last = ckpt.latest_step(ckpt_dir)
                 if last is None:
@@ -138,6 +153,8 @@ def train(cfg: ModelConfig, mesh=None, *, steps: int, global_batch: int,
         pf.close()
         saver.wait()
         opt_saver.wait()
+    if ranks > 1:
+        mesh.barrier()
     return TrainReport(steps_run=step - start, final_loss=losses[-1] if losses
                        else float("nan"), restarts=restarts,
                        straggler_events=stragglers, losses=losses,

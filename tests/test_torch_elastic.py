@@ -168,7 +168,7 @@ def test_reshard_index_validation():
         tel.reshard_tree(idx)                       # needs mesh or shards=
     with pytest.raises(ValueError, match="unknown builder"):
         tss.reshard_index(idx, 2, builder="nsg")
-    with pytest.raises(NotImplementedError, match="queue 1 D"):
+    with pytest.raises(ValueError, match="new_mesh"):
         tel.reshard_tree({"w": torch.zeros(2)}, shards=2, cfg=object())
 
 

@@ -1,0 +1,483 @@
+"""The rank bodies of the process-group tests, and the spawner that runs
+them (``tests/test_torch_process_mesh.py``, ``test_torch_dist_*.py``,
+``test_torch_cuda_dist.py``).
+
+Nothing here imports JAX: ``torch.multiprocessing`` spawns each rank as a
+fresh interpreter that imports this module (not the test module, which
+imports the reference). Every rank sets one thread, joins a gloo (or
+NCCL) group through a ``file://`` store under the test's temporary
+directory (no TCP port, so parallel test workers cannot collide) with a
+timeout of :data:`GROUP_TIMEOUT_S`, and writes what it computed to
+``<tmp>/<tag>_<rank>.npz`` for the test to compare. A rank that raises
+fails :func:`spawn`, which also kills ranks that outlive its deadline.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+GROUP_TIMEOUT_S = 60
+
+
+def spawn(fn, world: int, *args, timeout: float = 240.0) -> None:
+    """Run ``fn(rank, world, *args)`` on ``world`` spawned ranks; raise if
+    one raises or they are not done within ``timeout`` seconds."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(world,) + args, nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise TimeoutError(f"{fn.__name__} on {world} ranks: not done "
+                               f"in {timeout} s")
+
+
+def process_mesh(rank: int, world: int, tmp: str, tag: str, shape=None,
+                 axes=("data",), backend: str = "gloo", device="cpu"):
+    """This rank's ``ProcessGroupMesh`` (the default group made first)."""
+    torch.set_num_threads(1)
+    from repro_torch.compat import make_process_mesh
+
+    return make_process_mesh(
+        shape or (world,), axes, backend=backend,
+        init_method="file://" + os.path.join(tmp, f"{tag}.store"),
+        rank=rank, world_size=world, timeout_s=GROUP_TIMEOUT_S,
+        device=device)
+
+
+def rank_device(rank: int, world: int, backend: str, device: str
+                ) -> torch.device:
+    """``device`` for this rank: NCCL across ranks takes one card each
+    (``cuda:rank``); gloo ranks on ``cuda`` share card 0."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if backend == "nccl" and world > 1:
+            dev = torch.device("cuda", rank)
+        elif dev.index is None:
+            dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def save(tmp: str, tag: str, rank: int, **arrays) -> None:
+    np.savez(os.path.join(tmp, f"{tag}_{rank}.npz"), **{
+        k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+        for k, v in arrays.items()})
+
+
+def load(tmp: str, tag: str, rank: int) -> dict:
+    with np.load(os.path.join(tmp, f"{tag}_{rank}.npz")) as f:
+        return dict(f)
+
+
+def done() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+# ------------------------------------------------------------ the mesh ----
+def mesh_inputs(world: int, device="cpu") -> dict:
+    """Integer-valued float32 and int32 blocks, one per rank, so every
+    sum is exact in any order."""
+    rng = np.random.default_rng(world)
+    f = rng.integers(-50, 50, (world, 3, 5)).astype(np.float32)
+    i = rng.integers(-1000, 1000, (world, 4)).astype(np.int32)
+    return dict(f=torch.from_numpy(f).to(device),
+                i=torch.from_numpy(i).to(device))
+
+
+#: the exchanges each rank runs: name -> the coordinate it receives from
+def exchanges(p: int) -> dict:
+    out = {"ring_next": lambda c: (c + 1) % p,
+           "ring_prev": lambda c: (c - 1) % p}
+    s = 1
+    while s < p:
+        out[f"xor{s}"] = lambda c, s=s: c ^ s
+        s *= 2
+    return out
+
+
+def mesh_ops(mesh, x: dict, r: int) -> dict:
+    """Every collective of a 1-D mesh on this rank's blocks."""
+    out = {}
+    for name, t in x.items():
+        blk = t[r:r + 1]
+        out[f"psum_{name}"] = mesh.psum(blk)
+        out[f"pmax_{name}"] = mesh.pmax(blk)
+        for axis in range(t.dim()):
+            out[f"gather{axis}_{name}"] = mesh.all_gather(blk, axis=axis)
+        for ex, src in exchanges(mesh.size).items():
+            out[f"{ex}_{name}"] = mesh.exchange(blk, src)
+    out["axis_index"] = mesh.axis_index()
+    out["bcast"] = np.asarray(mesh.broadcast_object(
+        {"from": int(mesh.rank), "v": [1, 2]} if mesh.rank == 0 else None
+    )["from"])
+    return out
+
+
+def mesh_rank(rank: int, world: int, tmp: str, backend: str = "gloo",
+              device: str = "cpu") -> None:
+    """The 1-D mesh's collectives; with 4 ranks also the (2, 2) test mesh
+    and the (2, 1, 2) pod mesh, along each of their axes."""
+    dev = rank_device(rank, world, backend, device)
+    mesh = process_mesh(rank, world, tmp, f"mesh{backend}", backend=backend,
+                        device=dev)
+    x = mesh_inputs(world, dev)
+    out = mesh_ops(mesh, x, rank)
+    if world == 4:
+        from repro_torch.launch.mesh import batch_axes, make_test_mesh
+
+        m2 = make_test_mesh(2, 2, device=dev)
+        out["coords_2x2"] = np.asarray(m2.coords)
+        out["batch_axes_2x2"] = np.asarray(batch_axes(m2))
+        blk = x["f"][rank:rank + 1]
+        for ax in ("data", "model"):
+            out[f"psum_{ax}"] = m2.psum(blk, ax)
+            out[f"gather_{ax}"] = m2.all_gather(blk, axis=1, axis_name=ax)
+            out[f"xor_{ax}"] = m2.exchange(blk, lambda c: c ^ 1, ax)
+            out[f"index_{ax}"] = m2.axis_index(ax)
+        pod = make_test_mesh(1, 2, pod=2, device=dev)
+        out["coords_pod"] = np.asarray(pod.coords)
+        out["batch_axes_pod"] = np.asarray(batch_axes(pod))
+        out["psum_pod"] = pod.psum(blk, "pod")
+        out["staged"] = np.asarray(mesh.staged_bytes + m2.staged_bytes)
+    save(tmp, f"mesh{backend}", rank, **out)
+    done()
+
+
+# ------------------------------------------------------- collectives ----
+def collectives_inputs(device="cpu"):
+    """The reference script's inputs (``compression_check.py`` and
+    ``ring_matmul_check.py`` shapes, plus a ragged leaf and a dict)."""
+    rng = np.random.default_rng(0)
+    g = rng.normal(size=(4, 512)).astype(np.float32)
+    g2 = rng.normal(size=(4, 512)).astype(np.float32)
+    r = (rng.normal(size=(4, 3, 1000)) * 3).astype(np.float32)
+    x = rng.normal(size=(16, 32)).astype(np.float32)
+    w = rng.normal(size=(32, 8)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in dict(g=g, g2=g2, r=r, x=x, w=w).items()}
+
+
+def collectives_ops(mesh, a: dict, sl: slice) -> dict:
+    """Two rounds of ``compressed_psum`` (the second with the first's
+    error feedback), ``tree_compressed_psum`` and both matmuls, on the
+    local stack ``sl`` of the inputs."""
+    from repro_torch.distributed.collectives import (allgather_matmul,
+                                                     ring_allgather_matmul)
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     tree_compressed_psum)
+
+    out = {}
+    mean, ef = compressed_psum(a["g"][sl], mesh)
+    mean2, ef2 = compressed_psum(a["g2"][sl], mesh, ef=ef)
+    out.update(mean=mean, ef=ef, mean2=mean2, ef2=ef2)
+    tm, te = tree_compressed_psum({"g": a["g"][sl], "r": a["r"][sl]}, mesh)
+    out.update(tree_g=tm["g"], tree_r=tm["r"], tree_ef_r=te["r"])
+    xs = a["x"].reshape(4, 4, 32)[sl]
+    out["agmm"] = allgather_matmul(xs, a["w"], mesh)
+    out["ringmm"] = ring_allgather_matmul(xs, a["w"], mesh)
+    return out
+
+
+def collectives_rank(rank: int, world: int, tmp: str, backend: str = "gloo",
+                     device: str = "cpu") -> None:
+    dev = rank_device(rank, world, backend, device)
+    mesh = process_mesh(rank, world, tmp, f"coll{backend}", backend=backend,
+                        device=dev)
+    out = collectives_ops(mesh, collectives_inputs(dev),
+                          slice(rank, rank + 1))
+    out["staged"] = np.asarray(mesh.staged_bytes)
+    save(tmp, f"coll{backend}", rank, **out)
+    done()
+
+
+# ------------------------------------------------------------ search ----
+def load_host_index(path: str) -> dict:
+    with np.load(path, allow_pickle=False) as f:
+        host = {k: f[k] for k in f.files if not k.startswith("meta_")}
+        meta = {k[5:]: f[k].item() for k in f.files if k.startswith("meta_")}
+    host.update(metric=str(meta["metric"]), scheme=None,
+                scale_rows=int(meta.get("scale_rows", 8)))
+    return host
+
+
+def search_ops(index, X, qs, mesh, lanes: int = 3) -> dict:
+    """``sharded_topk`` (both merges), two rounds of
+    ``sharded_topk_resume``, ``sharded_diverse_search``,
+    ``sharded_progressive_diverse`` and a
+    ``LaneScheduler`` over a ``lanes``-lane ``ShardedEngine`` serving every
+    query (more queries than lanes: admission in the middle of the run)."""
+    from repro_torch import sharded_search as T
+
+    out = {}
+    for merge in ("tournament", "allgather"):
+        r = T.sharded_topk(index, qs, 10, 64, mesh, merge=merge,
+                           with_expansions=True)
+        for name, a in zip(("ids", "scores", "expansions"), r):
+            out[f"topk_{merge}_{name}"] = a
+    B = qs.shape[0]
+    cap = T.beam_state_capacity(index, 64)
+    state = T.init_sharded_state(index, B, cap, mesh)
+    lanes_all = np.arange(B)
+    ids, sc, state = T.sharded_topk_resume(index, state, qs, lanes_all,
+                                           np.ones(B, bool), 16, 64, mesh)
+    out.update(resume1_ids=ids, resume1_scores=sc)
+    half = lanes_all[::2]
+    ids, sc, state = T.sharded_topk_resume(index, state, qs[half], half,
+                                           np.zeros(len(half), bool), 32,
+                                           128, mesh)
+    out.update(resume2_ids=ids, resume2_scores=sc,
+               resume2_steps=mesh.psum(state.steps))
+    r = T.sharded_diverse_search(index, X, qs, 5, 4.0, 64, mesh,
+                                 with_expansions=True)
+    for name, a in zip(("ids", "scores", "certified", "expansions"), r):
+        out["diverse_" + name] = a
+    r = T.sharded_progressive_diverse(index, X, qs, 5, 4.0, mesh, K0=16)
+    for name, a in zip(("ids", "scores", "certified", "K_final"), r):
+        out[f"progressive_beam_{name}"] = a
+    out.update(scheduled(index, X, qs, mesh, lanes))
+    return out
+
+
+def scheduled(index, X, qs, mesh, lanes: int) -> dict:
+    """Rank 0's ``LaneScheduler`` results (the other ranks follow and
+    return nothing): per request ids, scores, certificate, K_final,
+    expansions, and whether a request was admitted into a freed lane while
+    others were in flight."""
+    from repro_torch.serve.scheduler import LaneScheduler, follow
+    from repro_torch.sharded_search import ShardedEngine
+
+    eng = ShardedEngine(index, X, mesh, num_lanes=lanes, K0=16, max_k=8,
+                        resume="beam")
+    if getattr(mesh, "local_size", 1) != mesh.size and mesh.rank != 0:
+        follow(eng)
+        return {}
+    sched = LaneScheduler(backend=eng, prewarm=True, max_pending=64)
+    reqs = [sched.submit(np.asarray(q.cpu() if isinstance(q, torch.Tensor)
+                                    else q), 5, 4.0) for q in qs]
+    mid_run = False
+    seen: dict[int, int] = {}
+    while sched.pending or sched.inflight:
+        before = {lane: r.rid for lane, r in sched.inflight.items()}
+        sched.pump()
+        for lane, r in sched.inflight.items():
+            if before.get(lane) != r.rid and lane in seen and before:
+                mid_run = True
+            seen[lane] = r.rid
+    sched.close()
+    res = [r.result for r in reqs]
+    return dict(
+        sched_ids=np.stack([x.ids for x in res]),
+        sched_scores=np.stack([x.scores for x in res]),
+        sched_certified=np.array([x.stats.certified for x in res]),
+        sched_K_final=np.array([x.stats.K_final for x in res]),
+        sched_expansions=np.array([x.stats.expansions for x in res]),
+        sched_mid_run=np.asarray(mid_run),
+        sched_latency_n=np.asarray(sched.latency_stats()["completed"]))
+
+
+def search_rank(rank: int, world: int, tmp: str, backend: str = "gloo",
+                device: str = "cpu", what: str = "all") -> None:
+    """This rank's shard of the index in ``<tmp>/index.npz`` (queries and
+    corpus in ``<tmp>/world.npz``) and the search calls of
+    :func:`search_ops` (``what="topk"``: ``sharded_topk`` only), with each
+    rank's kernel launches by name."""
+    dev = rank_device(rank, world, backend, device)
+    mesh = process_mesh(rank, world, tmp, f"search{backend}{device}",
+                        backend=backend, device=dev)
+    from repro_torch.kernels import ops
+    from repro_torch.sharded_search import search as ss
+
+    host = load_host_index(os.path.join(tmp, "index.npz"))
+    index = ss.index_from_host(ss.local_shard(host, rank), device=dev)
+    with np.load(os.path.join(tmp, "world.npz")) as f:
+        X, qs = torch.from_numpy(f["X"]).to(dev), torch.from_numpy(f["qs"])
+    ops.reset_launch_counts()
+    if what == "topk":
+        out = {}
+        for merge in ("tournament", "allgather"):
+            r = ss.sharded_topk(index, qs, 10, 64, mesh, merge=merge,
+                                with_expansions=True)
+            for name, a in zip(("ids", "scores", "expansions"), r):
+                out[f"topk_{merge}_{name}"] = a
+    else:
+        out = search_ops(index, X, qs, mesh)
+    out.update({f"launches_{k}": np.asarray(v)
+                for k, v in ops.launch_counts().items()})
+    out["staged"] = np.asarray(mesh.staged_bytes)
+    save(tmp, f"search{backend}{device}", rank, **out)
+    done()
+
+
+# ------------------------------------------------------------- train ----
+def train_rank(rank: int, world: int, tmp: str) -> None:
+    """One data-parallel train step of the reduced qwen2 on a ``(world,
+    1)`` mesh from the parameters and batch in ``<tmp>/train_in.npz``."""
+    mesh = process_mesh(rank, world, tmp, "train", shape=(world, 1),
+                        axes=("data", "model"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+
+    cfg = get_config("qwen2-1.5b").reduced()
+    with np.load(os.path.join(tmp, "train_in.npz")) as f:
+        arrays = dict(f)
+    params = M.from_host(cfg, _tree(arrays, "p/"), device="cpu")
+    batch = {k: torch.from_numpy(arrays["b/" + k]) for k in ("tokens",
+                                                              "labels")}
+    opt = O.AdamW(lr=O.cosine_schedule(3e-3, 1, 12))
+    step, _ = build_train_step(cfg, mesh, optimizer=opt)
+    params, state, loss = step(params, opt.init(params), batch)
+    if rank == 0:
+        flat = {"p/" + "/".join(k): v for k, v in _flat(M.to_host(params))}
+        save(tmp, "train", rank, loss=loss, **{
+            k: (v.view(np.uint16) if v.dtype.name == "bfloat16" else v)
+            for k, v in flat.items()})
+    done()
+
+
+def _flat(tree: dict, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _tree(arrays: dict, prefix: str) -> dict:
+    out: dict = {}
+    for key, v in arrays.items():
+        if not key.startswith(prefix):
+            continue
+        path = key[len(prefix):].split("/")
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = v
+    return out
+
+
+def reshard_rank(rank: int, world: int, tmp: str) -> None:
+    """``reshard_tree`` of the reduced qwen2's parameters (the reference's
+    checkpoint in ``<tmp>/ref_ckpt``) onto a (2, 2) mesh, then to (4, 1)
+    and back; rank 0 writes the (2, 2) slices gathered whole as a
+    checkpoint of its own (``<tmp>/port_ckpt``)."""
+    mesh22 = process_mesh(rank, world, tmp, "reshard", shape=(2, 2),
+                          axes=("data", "model"))
+    from repro_torch.compat import ProcessGroupMesh
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.elastic import reshard_tree
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as ckpt
+
+    mesh41 = ProcessGroupMesh((4, 1), ("data", "model"), device="cpu")
+    cfg = get_config("qwen2-1.5b").reduced()
+    like = M.stack(M.abstract_params(cfg).to_empty(device="cpu")
+                   .named_parameters())
+    whole = ckpt.restore(os.path.join(tmp, "ref_ckpt"), 1, like)
+    s22 = reshard_tree(whole, mesh22, cfg)
+    s41 = reshard_tree(s22, mesh41, cfg, old_mesh=mesh22)
+    back = reshard_tree(s41, mesh22, cfg, old_mesh=mesh41)
+    spec22 = sh.param_spec_tree(cfg, sh.param_layout(whole), mesh22)
+    gathered = {}
+
+    def walk(a, b, c, spec, path=()):
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k], c[k], spec[k], path + (k,))
+            else:
+                gathered["/".join(path + (k,))] = sh.gather_leaf(
+                    c[k], spec[k], mesh22)
+                assert torch.equal(a[k].view(torch.int16) if a[k].dtype ==
+                                   torch.bfloat16 else a[k],
+                                   b[k].view(torch.int16) if b[k].dtype ==
+                                   torch.bfloat16 else b[k]), path + (k,)
+
+    walk(s22, back, s22, spec22)
+    shapes = {"/".join(p): np.asarray(v.shape) for p, v in _flat(s41)}
+    if rank == 0:
+        whole22 = _tree(gathered, "")
+        ckpt.save(os.path.join(tmp, "port_ckpt"), 1, whole22)
+    save(tmp, "reshard", rank, **{"s41/" + k: v for k, v in shapes.items()})
+    mesh22.barrier()
+    done()
+
+
+def loop_rank(rank: int, world: int, tmp: str) -> None:
+    """``launch.train.main`` under torchrun's variables: two ranks train
+    the reduced qwen2 data parallel for 4 steps with a checkpoint every
+    step and a fault injected at step 2 on every rank."""
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import loop
+
+    reports = []
+    real = loop.train
+
+    def traced(*a, **kw):
+        fired = []
+
+        def hook(step):
+            if step == 2 and not fired:
+                fired.append(step)
+                raise RuntimeError("injected fault")
+
+        rep = real(*a, fault_hook=hook, **kw)
+        reports.append(rep)
+        return rep
+
+    launcher.train = traced
+    rc = launcher.main(["--steps", "4", "--batch", "4", "--seq", "16",
+                        "--ckpt", os.path.join(tmp, "loop_ckpt"),
+                        "--ckpt-every", "1", "--device", "cpu",
+                        "--backend", "gloo", "--init-method",
+                        "file://" + os.path.join(tmp, "loop.store")])
+    rep = reports[0]
+    save(tmp, "loop", rank, rc=rc, losses=np.asarray(rep.losses),
+         restarts=rep.restarts, steps_run=rep.steps_run)
+
+
+def gloo_cuda_probe_rank(rank: int, world: int, tmp: str) -> None:
+    """Which of gloo's collectives take CUDA tensors as they are: each is
+    tried once on the card and its outcome (or error) recorded. Point to
+    point is not tried: gloo's TCP pair writes a CUDA tensor's device
+    pointer and the process aborts (``gloo::IoException``, ``writev ...
+    Bad address``, torch 2.11 on an H100)."""
+    dev = rank_device(rank, world, "gloo", "cuda")
+    process_mesh(rank, world, tmp, "probe", device=dev)
+    import json
+
+    import torch.distributed as dist
+
+    x = torch.arange(8, dtype=torch.float32, device=dev) + rank
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 — the probe records each error
+            out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+        with open(os.path.join(tmp, f"probe_{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    done()

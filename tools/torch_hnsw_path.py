@@ -4,7 +4,7 @@ CUDA card.
 
 Run from the root of a checkout, on a machine with a card:
 
-    python3 tools/torch_hnsw_path.py [--n10 10000] [--seed 0]
+    python3 tools/torch_hnsw_path.py [--n10 5000] [--seed 0]
 
 It makes phase 4's corpus and held-out queries (the 1M-row deep-like
 mixture and its 64 further rows, from ``--seed``) without building phase
@@ -28,7 +28,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--n10", type=int, default=10_000)
+    p.add_argument("--n10", type=int, default=None,
+                   help="rows of the phase (chip_smoke.N10 unless given)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n", type=int, default=1_000_000)
     args = p.parse_args()
@@ -46,7 +47,7 @@ def main() -> int:
     os.makedirs(cs.OUT, exist_ok=True)
     device = torch.device("cuda")
     allx = cs.deep_like(torch, args.n + 64, cs.D, args.seed, device)
-    x_np = allx[:args.n10].cpu().numpy()
+    x_np = allx[:args.n10 or cs.N10].cpu().numpy()
     qs_np = allx[args.n:].cpu().numpy()
     del allx
     report: dict = {}
