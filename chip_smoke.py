@@ -326,6 +326,44 @@ Phases:
    else ``nccl_across_cards: not run (1 card)``. The ranks that share one
    card measure the port's code path, not NCCL's bandwidth.
 
+15. The facade over a process group (run after phase 14). ``PG15_RANKS``
+   gloo ranks spawned on the card, each calling the same
+   ``DiverseVectorDB(rows, "l2", mesh=<the ranks' mesh>)`` over the first
+   ``EL_ROWS`` rows of phase 4's corpus (phase 8 (b)-(c)'s cut, listed
+   under ``reduced``): each builds only its own shard, rank 0 runs the
+   script and the others follow inside their constructors until rank 0
+   closes it. (a) ``writes``: 4 shards, the rebuild in the foreground, 48
+   of the 64 queries submitted (the first 16 at phase 8 (b)'s straddle
+   eps, several rounds each), 100 upserts after the first pump, 64 ids
+   (those 16 queries' nearest rows) deleted while their lanes run, 100
+   more upserts filling the delta to a rebuild and its swap, the last 16
+   queries on the new epoch; and
+   ``elastic``: ``shards="auto"`` starts on 2 of the 4 ranks with the
+   4-shard target prepared, the 64-query burst of phase 8 (b) grows it,
+   idle pumps shrink it back (at a grow the ranks outside take rank 0's
+   lane state, the beam state is gathered over the group). Gate: rank 0's
+   results (ids, score bits, certificates, ``K_final``, expansions, epoch
+   and version tags), lanes, shard count after each pump and scale events
+   (with the pump each lands at) bit-equal to the same two scripts on a
+   ``LocalMesh`` facade run in this process meanwhile; at least one grow,
+   one shrink and one admission on the new mesh; every result valid at
+   its tag, every certificate re-proved by ``theorem2_recheck``, epochs 0
+   and 1. (b) ``background``: 16 queries, then the upserts fill the delta
+   to a background rebuild on every rank, the deletes land, 48 queries are
+   served while the ranks build, and after rank 0's swap (each follower
+   waits for its own build) 16 fresh queries: the same validity gates, one
+   swap on every rank. ``sim_gather``, ``pairwise_adjacency`` and
+   ``topk_merge`` must launch inside every rank, ``sim_many`` (the delta
+   scoring at harvest) on rank 0. Printed: QPS and p50 / p99 (rank 0's
+   ``latency_stats``), each scale event's pause and the bytes it gathered,
+   each rank's build seconds and its wait for its own rebuild at the swap,
+   rank 0's swap drain, each rank's seconds inside collectives and
+   broadcasts, and the bytes it staged and gathered. (c) ``torchrun
+   --nproc-per-node 4 -m repro_torch.launch.serve --backend gloo`` with
+   ``--mesh-shards 4`` and with ``--elastic``, both at once (the 8 ranks
+   share the card): rc 0, and rank 0's certificates and retrieved ids
+   equal to the same flags' run in this process, made meanwhile.
+
 Each phase's wall is logged on a line of its own and kept under
 ``phase_walls_s`` in chiprun_out/chip_smoke.json, beside the script's.
 
@@ -544,6 +582,19 @@ DP_RANKS, DP_STEPS, PG_TIMEOUT_S = 2, 3, 600
 DP_WHOLE_LOSS_RTOL = 1e-3
 PATH14_KERNELS = ("topk_merge", "batch_similarity_gather",
                   "pairwise_adjacency")
+# phase 15: the facade over a process group (run after phase 14). PG15_RANKS
+# gloo ranks sharing the card serve DiverseVectorDB facades, one shard a
+# rank, over the first EL_ROWS rows of phase 4's corpus (phase 8 (b)-(c)'s
+# cut), with phase 4's eps and queries; the delta holds PG15_DELTA rows, so
+# FD_UPSERTS upserts fill it to a rebuild and its swap. (c) runs the serve
+# launcher with PG15_LAUNCH_ARGS under torchrun, each run killed past
+# PG15_LAUNCH_TIMEOUT_S
+PG15_RANKS, PG15_DELTA = 4, FD_UPSERTS
+PG15_SCRIPTS = ("writes", "elastic", "background")
+PG15_LAUNCH_ARGS = ("--requests", "8", "--steps", "4")
+PG15_LAUNCH_TIMEOUT_S = 300
+PATH15_KERNELS = ("batch_similarity_gather", "pairwise_adjacency",
+                  "topk_merge")
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
@@ -4370,18 +4421,32 @@ def ptxas_summary(logs: dict) -> dict:
 def pg_spawn(torch, fn, world: int, *args, timeout: float = PG_TIMEOUT_S):
     """``fn(rank, world, *args)`` on ``world`` spawned ranks; raises if one
     raises, and kills them all past ``timeout`` seconds."""
+    pg_wait(pg_start(fn, world, *args), timeout)
+
+
+def pg_start(fn, world: int, *args):
+    """Start ``fn(rank, world, *args)`` on ``world`` spawned ranks."""
     import torch.multiprocessing as mp
 
     ctx = mp.start_processes(fn, args=(world,) + args, nprocs=world,
                              join=False, start_method="spawn")
-    deadline = time.perf_counter() + timeout
-    while not ctx.join(timeout=max(0.1, deadline - time.perf_counter())):
-        if time.perf_counter() >= deadline:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-            raise AssertionError(f"phase 14: {fn.__name__} on {world} ranks "
-                                 f"not done in {timeout} s")
+    ctx.started, ctx.what = time.perf_counter(), f"{fn.__name__} on {world}"
+    return ctx
+
+
+def pg_wait(ctx, timeout: float = PG_TIMEOUT_S) -> None:
+    """Wait for ``pg_start``'s ranks; raises if one raises, and kills them
+    all past ``timeout`` seconds of their start."""
+    deadline = ctx.started + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.perf_counter())):
+            if time.perf_counter() >= deadline:
+                raise AssertionError(f"{ctx.what} ranks not done in "
+                                     f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
 
 
 def pg_rank_mesh(torch, rank, world, tmp, tag, backend, shape=None,
@@ -4895,6 +4960,561 @@ def pg_train_results(tmp) -> dict:
         final_max_gap_ulps_of_leaf_max=cmp["final_max_gap_ulps_of_leaf_max"])
 
 
+# ------------------------------------------------------------ phase 15 ----
+
+def pg15_kw(script: str) -> dict:
+    """The facade's constructor arguments for each of phase 15's scripts
+    (the same on the ranks and on the LocalMesh)."""
+    from repro_torch.serve.scheduler import ElasticPolicy
+
+    base = dict(max_k=K, default_ef=EF, M=M_GRAPH, prewarm=False,
+                backend_kw=dict(resume="beam"))
+    if script == "elastic":
+        return dict(base, shards="auto", num_lanes=EL_LANES,
+                    elastic=ElasticPolicy(grow_depth=EL_LANES, **EL_POLICY))
+    return dict(base, shards=PG15_RANKS, num_lanes=LANES,
+                delta_capacity=PG15_DELTA,
+                background_rebuild=script == "background")
+
+
+class Pg15Clocks:
+    """Each epoch build's seconds and end, each swap's install time and a
+    follower's wait for its own rebuild, recorded by class-level wrappers
+    (a follower's facade builds and swaps inside its constructor)."""
+
+    def __init__(self, torch):
+        from repro_torch.index.mutable import MutableBackend, MutableIndex
+
+        self.builds, self.installs, self.waits = [], [], []
+        build, install = MutableIndex._build, MutableBackend._install
+        follow_swap = MutableBackend.follow_swap
+
+        def timed_build(index, snap):
+            t = time.perf_counter()
+            art = build(index, snap)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+            self.builds.append(dict(s=end - t, end=end,
+                                    shards_built=art.local_shards))
+            return art
+
+        def timed_install(backend):
+            ok = install(backend)
+            torch.cuda.synchronize()
+            self.installs.append(time.perf_counter())
+            return ok
+
+        def timed_follow_swap(backend):
+            t = time.perf_counter()
+            follow_swap(backend)
+            self.waits.append(time.perf_counter() - t)
+
+        MutableIndex._build = timed_build
+        MutableBackend._install = timed_install
+        MutableBackend.follow_swap = timed_follow_swap
+
+    def record(self) -> dict:
+        out = dict(build_s=[b["s"] for b in self.builds],
+                   shards_built=[b["shards_built"] for b in self.builds],
+                   follow_swap_s=list(self.waits))
+        self.builds, self.installs, self.waits = [], [], []
+        return out
+
+
+def pg15_result(r, tag=None) -> dict:
+    res = r.result
+    out = dict(ids=res.ids, scores=res.scores, certified=res.stats.certified,
+               K_final=res.stats.K_final, expansions=res.stats.expansions)
+    if tag is not None:
+        out.update(epoch=tag[0], version=tag[1])
+    return out
+
+
+def pg15_served(db, reqs, tags, fronts, snaps, dead_version,
+                what) -> int:
+    """The validity gates of a facade's results: each valid at its tag
+    (inside its snapshot's rows and live there, so nothing deleted is
+    served after its delete), every certificate re-proved over its corpus,
+    results from epochs 0 and 1. Returns the certified count."""
+    from repro_torch.core import theorems
+    from repro_torch.kernels import ops
+
+    kept = ops.launch_counts()          # the checks' launches are dropped
+    res = [r.result for r in reqs]
+    check_valid_at_tag(res, tags, snaps, what)
+    certified = 0
+    after = [j for j, t in tags.items() if t[1] >= dead_version]
+    if not after:
+        raise AssertionError(f"{what}: no request served after the delete")
+    for j, r in enumerate(res):
+        if not r.stats.certified:
+            continue
+        certified += 1
+        n_at = snaps[max(v for v in snaps if v <= tags[j][1])][0]
+        ok, sel = theorems.theorem2_recheck(
+            db.index.float_view()[:n_at], "l2", fronts[j][0], fronts[j][1],
+            reqs[j].eps, K, device=db.index.device)
+        if not (ok and np.array_equal(sel, r.ids)):
+            raise AssertionError(f"{what} request {j}: the certificate "
+                                 "fails theorem2_recheck over its corpus")
+    epochs = sorted({t[0] for t in tags.values()})
+    if epochs != [0, 1]:
+        raise AssertionError(f"{what}: results from epochs {epochs}")
+    for name, fn in ops.KERNELS.items():
+        fn.launches = kept[name]
+    return certified
+
+
+class Pg15Serving:
+    """Submit (pumping on backpressure) and poll each completed request's
+    harvest-time tag and merged frontier, as ``serve_polled`` does, for a
+    script that writes between its submissions."""
+
+    def __init__(self, db):
+        self.db, self.sched = db, db.scheduler
+        self.reqs, self.tags, self.fronts = [], {}, {}
+        self.snaps = {}
+        self.snap()
+
+    def snap(self):
+        self.snaps[self.db.index.version] = (self.db.index.n_total,
+                                             self.db.index.deleted.copy())
+
+    def submit(self, queries):
+        from repro_torch.serve.scheduler import (RequestDeferred,
+                                                 SchedulerSaturated)
+        for q in queries:
+            while True:
+                try:
+                    self.reqs.append(self.sched.submit(q))
+                    break
+                except (SchedulerSaturated, RequestDeferred):
+                    self.pump()
+
+    def pump(self):
+        self.sched.pump()
+        backend = self.db.backend
+        for i, r in enumerate(self.reqs):
+            if r.result is not None and i not in self.tags:
+                meta = backend.last_meta[r.lane]
+                self.tags[i] = (meta["epoch"], meta["version"])
+                self.fronts[i] = backend.last_candidates[r.lane]
+
+    def drain(self):
+        while any(r.result is None for r in self.reqs):
+            self.pump()
+
+    def served_ids(self, n: int) -> list[int]:
+        """The first ``n`` distinct ids served so far, pumping until there
+        are that many (or nothing is left to serve)."""
+        while True:
+            ids: list[int] = []
+            for r in self.reqs:
+                for j in ([] if r.result is None else r.result.ids.tolist()):
+                    if j >= 0 and j not in ids and len(ids) < n:
+                        ids.append(j)
+            if len(ids) >= n or all(r.result is not None for r in self.reqs):
+                return ids
+            self.pump()
+
+
+def pg15_dead(rows, qs_np, n: int) -> list[int]:
+    """``n`` ids to delete: the nearest rows (exact l2, on the host) of
+    each query in turn, so that the deletes meet the lanes in flight."""
+    per = -(-n // len(qs_np))
+    dead: list[int] = []
+    for q in qs_np:
+        d2 = ((rows - q) ** 2).sum(1)
+        for j in np.argsort(d2, kind="stable")[:per].tolist():
+            if j not in dead and len(dead) < n:
+                dead.append(j)
+    return dead
+
+
+def pg15_writes(db, qs_np, eps, eps_hard, new_rows) -> dict:
+    """Phase 15 (a), writes: 48 of the queries submitted, the first
+    LANES at ``eps_hard`` (several rounds each, so they are in flight when
+    the writes land); after the first pump half the upserts, then
+    FD_DELETES ids (those lanes' nearest rows) deleted, then the other half
+    of the upserts filling the delta to a rebuild (in the foreground) and
+    its swap, then the last 16 queries on the new epoch. Held to the
+    validity gates; returns each result with its tag."""
+    from repro_torch.db import Query
+
+    s = Pg15Serving(db)
+    queries = [Query(q, k=K, eps=eps_hard if i < LANES else eps)
+               for i, q in enumerate(qs_np)]
+    first = 3 * len(queries) // 4
+    n0 = db.index.n_total
+    t0 = time.perf_counter()
+    s.submit(queries[:first])
+    s.pump()
+    inflight_at_write = len(s.sched.inflight)
+    db.upsert(new_rows[:FD_UPSERTS // 2])
+    s.snap()
+    dead = pg15_dead(db.index.float_view()[:n0], qs_np[:LANES], FD_DELETES)
+    db.delete(dead)
+    s.snap()
+    dead_version = db.index.version
+    db.upsert(new_rows[FD_UPSERTS // 2:])        # fills the delta: rebuild
+    s.snap()
+    if not db.index.swap_ready():
+        raise AssertionError("(a) writes: the delta filled, no rebuild ready")
+    s.submit(queries[first:])
+    s.drain()
+    wall = time.perf_counter() - t0
+    if not (db.backend.swaps == 1 and db.index.epoch == 1):
+        raise AssertionError(f"(a) writes: {db.backend.swaps} swaps, epoch "
+                             f"{db.index.epoch}")
+    certified = pg15_served(db, s.reqs, s.tags, s.fronts, s.snaps,
+                            dead_version, "(a) writes")
+    st = db.stats()
+    return dict(
+        results=[pg15_result(r, s.tags[i]) for i, r in enumerate(s.reqs)],
+        dead=dead, rows=db.index.n_total, epoch_swaps=db.backend.swaps,
+        inflight_at_write=inflight_at_write,
+        timing=dict(wall_s=wall, qps=len(queries) / wall,
+                    p50_latency_s=st["p50_latency"],
+                    p99_latency_s=st["p99_latency"],
+                    certified_share=certified / len(s.reqs)))
+
+
+def pg15_elastic(db, qs_np, eps) -> dict:
+    """Phase 15 (a), elastic: the burst of phase 8 (b) (at most 2 x
+    EL_LANES queued), then idle pumps until a shrink. Returns every result,
+    its lane, the shard count after each pump and the scale events."""
+    from repro_torch.db import Query
+
+    sched = db.scheduler
+    start = (db.backend.num_shards, db.backend.rescale_options())
+    queries = [Query(q, k=K, eps=eps) for q in qs_np]
+    reqs, trace, i = [], [], 0
+    t_burst = sched.clock()
+    while i < len(queries) or sched.pending or sched.inflight:
+        while i < len(queries) and len(sched.pending) < 2 * EL_LANES:
+            reqs.append(sched.submit(queries[i]))
+            i += 1
+        sched.pump()
+        trace.append(int(db.backend.num_shards))
+    t_end = sched.clock()
+    for _ in range(4 * EL_POLICY["shrink_sustain"]):
+        sched.pump()
+        trace.append(int(db.backend.num_shards))
+        if any(e["to_shards"] < e["from_shards"] for e in sched.scale_events):
+            break
+    events = sched.scale_events
+    grows = [e for e in events if e["to_shards"] > e["from_shards"]]
+    shrinks = [e for e in events if e["to_shards"] < e["from_shards"]]
+    on_new = [r for r in reqs if grows and r.t_admit >= grows[0]["t"]
+              and (not shrinks or r.t_admit < shrinks[0]["t"])]
+    if not (grows and shrinks and on_new):
+        raise AssertionError(f"(a) elastic: grows {len(grows)}, shrinks "
+                             f"{len(shrinks)}, admitted on the new mesh "
+                             f"{len(on_new)}")
+    st = db.stats()
+    return dict(
+        start=start, results=[pg15_result(r) for r in reqs],
+        lanes=[r.lane for r in reqs], trace=trace,
+        events=[(e["from_shards"], e["to_shards"], e["pending"],
+                 e["inflight"], e["pump"]) for e in events],
+        admitted_on_new=len(on_new),
+        timing=dict(wall_s=t_end - t_burst,
+                    qps=len(queries) / (t_end - t_burst),
+                    p50_latency_s=st["p50_latency"],
+                    p99_latency_s=st["p99_latency"],
+                    certified_share=st["certified_frac"],
+                    pauses_s=[e["pause_s"] for e in events],
+                    gathered_bytes=[e["gathered_bytes"] for e in events]))
+
+
+def pg15_background(db, qs_np, eps, new_rows, fresh, clocks) -> dict:
+    """Phase 15 (b): 16 queries served, the upserts filling the delta to a
+    background rebuild, FD_DELETES served ids deleted, the other 48
+    queries served while the ranks build, then the swap and FD_AFTER_SWAP
+    fresh queries on the new epoch. Held to the validity gates."""
+    from repro_torch.db import Query
+
+    s = Pg15Serving(db)
+    queries = [Query(q, k=K, eps=eps) for q in qs_np]
+    s.submit(queries[:16])
+    s.drain()
+    dead = s.served_ids(FD_DELETES)
+    t_write = time.perf_counter()
+    db.upsert(new_rows)                           # fills: background build
+    s.snap()
+    db.delete(dead)
+    s.snap()
+    dead_version = db.index.version
+    s.submit(queries[16:])
+    s.drain()
+    t_served = time.perf_counter()
+    db.index.wait_rebuild()
+    s.submit([Query(v, k=K, eps=eps) for v in fresh])
+    s.drain()
+    if db.backend.swaps != 1:
+        raise AssertionError(f"(b): {db.backend.swaps} swaps")
+    certified = pg15_served(db, s.reqs, s.tags, s.fronts, s.snaps,
+                            dead_version, "(b) background")
+    ready = [b["end"] for b in clocks.builds if b["end"] > t_write]
+    return dict(queries=len(s.reqs), dead=len(dead),
+                epochs=sorted({t[0] for t in s.tags.values()}),
+                certified_share=certified / len(s.reqs),
+                served_48_after_write_s=t_served - t_write,
+                rebuild_ready_after_write_s=ready[-1] - t_write,
+                swap_drain_s=clocks.installs[-1] - ready[-1])
+
+
+def pg15_mesh_counters(mesh) -> dict:
+    """A rank's counters over its group's mesh and every sub-mesh cut
+    from it."""
+    meshes = [mesh] + list(mesh._subs.values())
+    return dict(collective_s=sum(m.collective_s for m in meshes),
+                broadcast_s=sum(m.broadcast_s for m in meshes),
+                staged_bytes=sum(m.staged_bytes for m in meshes),
+                gathered_bytes=sum(m.gathered_bytes for m in meshes))
+
+
+def pg15_rank(rank, world, tmp):
+    """Phase 15 (a)-(b) on one rank: each script's facade over the ranks;
+    rank 0 runs the script and closes the facade, the others follow it
+    inside their constructors."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    dev, mesh = pg_rank_mesh(torch, rank, world, tmp, "facade", "gloo")
+    from repro_torch.db import DiverseVectorDB
+    from repro_torch.kernels import ops
+
+    with np.load(os.path.join(tmp, "pg15.npz")) as f:
+        rows, qs_np, new, fresh = f["rows"], f["qs"], f["new"], f["fresh"]
+        eps, eps_hard = float(f["eps"]), float(f["eps_hard"])
+    clocks = Pg15Clocks(torch)
+    ops.reset_launch_counts()
+    out: dict = {"rank": rank}
+    for script in PG15_SCRIPTS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db = DiverseVectorDB(rows, "l2", mesh=mesh, device=dev,
+                             **pg15_kw(script))
+        if rank == 0:
+            rec = (pg15_writes(db, qs_np, eps, eps_hard, new)
+                   if script == "writes"
+                   else pg15_elastic(db, qs_np, eps) if script == "elastic"
+                   else pg15_background(db, qs_np, eps, new, fresh, clocks))
+            db.close()
+        else:
+            rec = dict(follower_steps=db.follower_steps)
+        torch.cuda.synchronize()
+        rec.update(clocks.record(), epoch_swaps=db.backend.swaps,
+                   script_s=time.perf_counter() - t0)
+        out[script] = rec
+    out.update(pg15_mesh_counters(mesh), launches=ops.launch_counts())
+    with open(os.path.join(tmp, f"pg15_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def pg15_same(got, want, path) -> None:
+    """Equal leaf by leaf, float32 on its bits."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{path}: keys {sorted(set(got) ^ set(want))}")
+        for k in want:
+            pg15_same(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: {len(got)} against {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            pg15_same(g, w, f"{path}[{i}]")
+    else:
+        g, w = np.asarray(got), np.asarray(want)
+        if w.dtype == np.float32:
+            g, w = g.view(np.uint32), w.view(np.uint32)
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{path}: {got} against {want}")
+
+
+def pg15_launcher_lines(text: str) -> tuple[str, list[str]]:
+    """The certified list and the retrieved ids the serve launcher
+    printed."""
+    lines = text.splitlines()
+    at = lines.index("retrieved ids:")
+    n = int(PG15_LAUNCH_ARGS[PG15_LAUNCH_ARGS.index("--requests") + 1])
+    return lines[at - 1].split("certified=")[1], lines[at + 1:at + 1 + n]
+
+
+def pg15_launcher(torch) -> dict:
+    """Phase 15 (c): the serve launcher under torchrun, 4 gloo ranks on
+    the card, with --mesh-shards 4 and with --elastic (both runs at once),
+    against the same flags in this process meanwhile."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as launcher
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src"), os.environ.get("PYTHONPATH", "")]))
+    modes = {"mesh": ["--mesh-shards", str(PG15_RANKS)],
+             "elastic": ["--elastic"]}
+    t0 = time.perf_counter()
+    procs = {mode: subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(PG15_RANKS), "-m",
+         "repro_torch.launch.serve", "--backend", "gloo",
+         *PG15_LAUNCH_ARGS, *flags], env=env, cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mode, flags in modes.items()}
+    out, want = {}, {}
+    try:
+        for mode, flags in modes.items():
+            buf = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                launcher.main(list(PG15_LAUNCH_ARGS) + flags)
+            torch.cuda.synchronize()
+            want[mode] = (pg15_launcher_lines(buf.getvalue()),
+                          time.perf_counter() - t1)
+        for mode, proc in procs.items():
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, PG15_LAUNCH_TIMEOUT_S
+                            - (time.perf_counter() - t0)))
+            if proc.returncode:
+                raise AssertionError(f"(c) torchrun {mode}: rc "
+                                     f"{proc.returncode}\n{stdout[-2000:]}"
+                                     f"\n{stderr[-4000:]}")
+            got = pg15_launcher_lines(stdout)
+            if got != want[mode][0]:
+                raise AssertionError(f"(c) {mode}: rank 0 retrieved {got}, "
+                                     f"one process {want[mode][0]}")
+            out[mode] = dict(rc=proc.returncode,
+                             torchrun_wall_s=time.perf_counter() - t0,
+                             one_process_s=want[mode][1], certified=got[0],
+                             equal_to_one_process=True)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+def facade_pg_path(torch, report, rows, qs_np, eps, seed, device):
+    """Phase 15: the facade over a process group (see the module
+    docstring). Returns the launches of every kernel inside the ranks."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from repro_torch.db import DiverseVectorDB
+    from repro_torch.kernels import ops
+
+    report.setdefault("reduced", []).append(
+        f"phase 15 runs on the first {len(rows)} rows of phase 4's corpus, "
+        "phase 8 (b)-(c)'s cut: its facades are built and rebuilt once a "
+        "script on the ranks and again on the LocalMesh, which at 1M rows "
+        "would take the script past its budget")
+    out: dict = {}
+    t_path = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg15_")
+    new = deep_like(torch, FD_UPSERTS, D, seed, device,
+                    row_seed=seed + 1500).cpu().numpy()
+    fresh = deep_like(torch, FD_AFTER_SWAP, D, seed, device,
+                      row_seed=seed + 1501).cpu().numpy()
+    from repro_torch.core import similarity as sim
+
+    # phase 8 (b)'s straddle eps: G^eps degree PHI over these rows
+    eps_hard = calibrate_eps(torch, sim, torch.as_tensor(rows, device=device),
+                             seed + 802, device)
+    try:
+        np.savez(os.path.join(tmp, "pg15.npz"), rows=rows, qs=qs_np, new=new,
+                 fresh=fresh, eps=np.asarray(eps),
+                 eps_hard=np.asarray(eps_hard))
+        # (a)-(b) on the ranks; (a) on the LocalMesh here meanwhile
+        t0 = time.perf_counter()
+        ctx = pg_start(pg15_rank, PG15_RANKS, tmp)
+        local = {}
+        for script in ("writes", "elastic"):
+            db = DiverseVectorDB(rows, "l2", device=device, **pg15_kw(script))
+            local[script] = (pg15_writes(db, qs_np, eps, eps_hard, new)
+                             if script == "writes"
+                             else pg15_elastic(db, qs_np, eps))
+            del db
+            gc.collect()
+        torch.cuda.empty_cache()
+        local_s = time.perf_counter() - t0
+        ops.reset_launch_counts()      # the LocalMesh's: a comparison's
+        pg_wait(ctx)
+        ranks = []
+        for r in range(PG15_RANKS):
+            with open(os.path.join(tmp, f"pg15_{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        lead = ranks[0]
+        for script in ("writes", "elastic"):
+            keys = ("results", "events", "lanes", "trace", "start", "dead")
+            pg15_same({k: lead[script][k] for k in keys
+                       if k in local[script]},
+                      {k: local[script][k] for k in keys
+                       if k in local[script]}, f"(a) {script}")
+        for r, rk in enumerate(ranks):
+            if rk["background"]["epoch_swaps"] != 1:
+                raise AssertionError(f"(b) rank {r}: "
+                                     f"{rk['background']['epoch_swaps']} "
+                                     "swaps")
+        out["a"] = dict(
+            rows=len(rows), ranks_n=PG15_RANKS, wall_s=time.perf_counter() - t0,
+            local_mesh_s=local_s, bit_equal_to_local_mesh=True,
+            writes=dict(lead["writes"]["timing"],
+                        rows_after=lead["writes"]["rows"],
+                        deletes=len(lead["writes"]["dead"]),
+                        eps_first_lanes=eps_hard,
+                        inflight_at_write=lead["writes"][
+                            "inflight_at_write"],
+                        local_mesh=local["writes"]["timing"]),
+            elastic=dict(lead["elastic"]["timing"],
+                         events=lead["elastic"]["events"],
+                         admitted_on_new_mesh=lead["elastic"][
+                             "admitted_on_new"],
+                         local_mesh=local["elastic"]["timing"]))
+        out["b"] = dict(lead["background"], follow_swap_s=[
+            rk["background"]["follow_swap_s"] for rk in ranks[1:]])
+        out["ranks"] = [dict(
+            rank=r, collective_s=rk["collective_s"],
+            broadcast_s=rk["broadcast_s"], staged_bytes=rk["staged_bytes"],
+            gathered_bytes=rk["gathered_bytes"], launches=rk["launches"],
+            **{f"{s}_build_s": rk[s]["build_s"] for s in PG15_SCRIPTS},
+            **{f"{s}_shards_built": rk[s]["shards_built"]
+               for s in PG15_SCRIPTS},
+            **{f"{s}_follow_swap_s": rk[s]["follow_swap_s"]
+               for s in PG15_SCRIPTS},
+            **{f"{s}_script_s": rk[s]["script_s"] for s in PG15_SCRIPTS})
+            for r, rk in enumerate(ranks)]
+        log("phase 15 (a) " + json.dumps(out["a"], default=float))
+        log("phase 15 (b) " + json.dumps(out["b"], default=float))
+        for rk in out["ranks"]:
+            log(f"phase 15 rank {rk['rank']}: " + json.dumps(rk,
+                                                              default=float))
+        # (c) the serve launcher under torchrun
+        t0 = time.perf_counter()
+        out["c"] = pg15_launcher(torch)
+        out["c"]["wall_s"] = time.perf_counter() - t0
+        log("phase 15 (c) " + json.dumps(out["c"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = [k for k in PATH15_KERNELS
+               if any(rk["launches"][k] == 0 for rk in ranks)]
+    if missing or ranks[0]["launches"]["batch_similarity_many"] == 0:
+        raise AssertionError(f"phase 15: kernels not launched inside every "
+                             f"serving rank: {missing}, sim_many on rank 0 "
+                             f"{ranks[0]['launches']['batch_similarity_many']}")
+    launches = {name: sum(rk["launches"][name] for rk in ranks)
+                for name in ranks[0]["launches"]}
+    out.update(path_s=time.perf_counter() - t_path, launches=launches)
+    report["facade_pg_path"] = out
+    return launches
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4979,6 +5599,9 @@ def main() -> int:
     glaunches = phase("14", process_group_path, torch, report, index6,
                       graph.vectors, qs_np, eps, served6, args.seed, device)
     del index6
+    pglaunches = phase("15", facade_pg_path, torch, report,
+                       graph.vectors[:EL_ROWS].cpu().numpy(), qs_np, eps,
+                       args.seed, device)
     plaunches, hist9 = phase("9", per_query_path, torch, report, graph,
                              qs_np, eps, served4)
     hists = [report["main_path"]["widths"], report["sharded_path"]["widths"]]
@@ -5000,14 +5623,16 @@ def main() -> int:
                         / prof["sim_gather_launches"]
                         if prof["sim_gather_launches"] else None)
     row["device_us_kept"] = prof["sim_gather_launches"]
-    # each kernel's launches over the eleven paths' runs (each path's own
-    # counts are in chip_smoke.json; phase 14's are its ranks' sums)
+    # each kernel's launches over the twelve paths' runs (each path's own
+    # counts are in chip_smoke.json; phases 14's and 15's are their ranks'
+    # sums)
     kernels = []
     for name, row in timings.items():
         total = (launches[name] + qlaunches[name] + slaunches[name]
                  + flaunches[name] + rlaunches[name] + falaunches[name]
                  + tlaunches[name] + elaunches[name]
-                 + glaunches[name] + plaunches[name] + hlaunches[name])
+                 + glaunches[name] + pglaunches[name] + plaunches[name]
+                 + hlaunches[name])
         kernels.append(dict(row, launches=int(total)))
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - T0

@@ -18,6 +18,11 @@ stack*: the blocks of the shards this process holds, on a leading axis.
 
 ``psum`` / ``pmax`` / ``all_gather`` return the replicated result once
 (no leading axis); ``exchange`` returns a local stack.
+
+``ProcessGroupMesh.sub(t)`` is the mesh of its group's first ``t`` ranks,
+whose sub-group every rank makes, those outside it included. A rank
+outside a mesh holds no shard on it: its local stack is empty
+(``local_size`` 0) and it takes part in none of the mesh's collectives.
 """
 from __future__ import annotations
 
@@ -38,13 +43,23 @@ from repro_torch import resolve_device
 LOCAL_DEVICE_COUNT = 4
 
 
+def in_process_group() -> bool:
+    """Whether this process has joined a default ``torch.distributed``
+    group."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
 def device_count() -> int:
-    """Counterpart of ``jax.device_count()`` for the mesh on one device:
-    the facade reads it to choose ``shards="auto"`` and its elastic targets.
-    The shard axis is virtual here (P shards of one process on one card),
-    so this is the fixed :data:`LOCAL_DEVICE_COUNT`, not the number of
-    cards. The facade over a process group (ROADMAP queue 1 D.2) replaces
-    it with the group's world size."""
+    """Counterpart of ``jax.device_count()``: the facade reads it to
+    choose ``shards="auto"`` and its elastic targets. Inside a default
+    process group it is the group's world size (one shard a rank);
+    elsewhere the shard axis is virtual (P shards of one process on one
+    card), so it is the fixed :data:`LOCAL_DEVICE_COUNT`, not the number
+    of cards."""
+    if in_process_group():
+        import torch.distributed as dist
+        return dist.get_world_size()
     return LOCAL_DEVICE_COUNT
 
 
@@ -117,10 +132,18 @@ class ProcessGroupMesh:
     not (torch 2.11 aborts the process: its TCP pair writes the device
     pointer), so ``exchange`` stages a CUDA tensor through host memory in
     ``_to_wire``, which counts the bytes (``staged_bytes``).
-    ``collective_s`` adds up the wall seconds spent inside the collectives.
+    ``collective_s`` adds up the wall seconds spent inside the collectives,
+    ``gathered_bytes`` the bytes ``all_gather`` brought to this rank, and
+    ``broadcast_s`` the seconds inside ``broadcast_object``.
+
+    ``sub(t)`` is the mesh of the group's first ``t`` ranks (``world`` is
+    the mesh it was cut from). A rank outside it holds no shard there
+    (``member`` False, ``rank`` -1, ``local_size`` 0).
     """
 
-    def __init__(self, shape, axis_names, group=None, device=None):
+    def __init__(self, shape, axis_names, group=None, device=None, *,
+                 world: "ProcessGroupMesh | None" = None,
+                 ranks: list | None = None):
         import torch.distributed as dist
 
         self.shape = tuple(int(n) for n in shape)
@@ -129,16 +152,28 @@ class ProcessGroupMesh:
             raise ValueError(f"mesh shape {self.shape} for axes "
                              f"{self.axis_names}")
         self.group = group if group is not None else dist.group.WORLD
-        self.ranks = dist.get_process_group_ranks(self.group)
+        #: the mesh this one was cut from (``sub``); itself when whole
+        self.world = world if world is not None else self
+        self.member = self.group is not dist.GroupMember.NON_GROUP_MEMBER
+        self.ranks = (dist.get_process_group_ranks(self.group) if self.member
+                      else list(ranks))
         if len(self.ranks) != math.prod(self.shape):
             raise ValueError(f"a mesh of shape {self.shape} needs "
                              f"{math.prod(self.shape)} ranks, the group has "
                              f"{len(self.ranks)}")
-        self.rank = dist.get_rank(self.group)
-        self.backend = dist.get_backend(self.group)
+        self.rank = dist.get_rank(self.group) if self.member else -1
+        self.backend = dist.get_backend(self.world.group)
         self.device = resolve_device(device)
-        self.coords = tuple(int(c) for c in np.unravel_index(self.rank,
-                                                             self.shape))
+        self.coords = (tuple(int(c) for c in np.unravel_index(self.rank,
+                                                              self.shape))
+                       if self.member else None)
+        self._subs: dict = {}
+        self.staged_bytes = 0
+        self.gathered_bytes = 0
+        self.collective_s = 0.0
+        self.broadcast_s = 0.0
+        if not self.member:
+            return
         # one sub-group per line of ranks along each axis; every rank makes
         # every group, in the same order (``new_group``'s contract)
         self._axis_groups = {}
@@ -152,8 +187,6 @@ class ProcessGroupMesh:
                 g = dist.new_group(members)
                 if self.rank in line:
                     self._axis_groups[name] = (g, members)
-        self.staged_bytes = 0
-        self.collective_s = 0.0
 
     @property
     def size(self) -> int:
@@ -161,8 +194,28 @@ class ProcessGroupMesh:
 
     @property
     def local_size(self) -> int:
-        """Blocks in this rank's local stack: one."""
-        return 1
+        """Blocks in this rank's local stack: one, none outside the
+        mesh."""
+        return int(self.member)
+
+    def sub(self, t: int) -> "ProcessGroupMesh":
+        """The one-axis mesh of this group's first ``t`` ranks. Its
+        sub-group is made on first use by ``dist.new_group``, which every
+        rank of the group must call in the same order, those outside the
+        sub-group included; later calls return the same mesh."""
+        import torch.distributed as dist
+
+        if len(self.shape) != 1 or not 1 <= t <= self.size:
+            raise ValueError(f"no sub-mesh of {t} ranks in a mesh of shape "
+                             f"{self.shape}")
+        if t == self.size:
+            return self
+        if t not in self._subs:
+            members = self.ranks[:t]
+            self._subs[t] = ProcessGroupMesh(
+                (t,), self.axis_names, dist.new_group(members), self.device,
+                world=self, ranks=members)
+        return self._subs[t]
 
     def axis_size(self, axis_name: str | None = None) -> int:
         return self.shape[self._axis(axis_name)]
@@ -188,6 +241,10 @@ class ProcessGroupMesh:
         return x.contiguous()
 
     def _one(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.member:
+            raise RuntimeError("this rank holds no shard on the mesh of "
+                               f"ranks {self.ranks}: it joins none of its "
+                               "collectives")
         if x.shape[0] != 1:
             raise ValueError("a process-group mesh's local stack holds one "
                              f"block, got a leading axis of {x.shape[0]}")
@@ -229,6 +286,7 @@ class ProcessGroupMesh:
         parts = [torch.empty_like(block) for _ in members]
         dist.all_gather(parts, block, group=group)
         out = torch.stack(parts).movedim(0, axis)
+        self.gathered_bytes += out.numel() * out.element_size()
         self.collective_s += time.perf_counter() - t0
         return out
 
@@ -273,8 +331,10 @@ class ProcessGroupMesh:
         """``obj`` of group rank ``src``, on every rank (pickled)."""
         import torch.distributed as dist
 
+        t0 = time.perf_counter()
         box = [obj]
         dist.broadcast_object_list(box, src=self.ranks[src], group=self.group)
+        self.broadcast_s += time.perf_counter() - t0
         return box[0]
 
     def barrier(self) -> None:

@@ -21,7 +21,13 @@ Everything underneath stays reachable (``db.scheduler``, ``db.backend``,
 ``db.index``, ``db.cache``). The graph or shards and the engine live on
 ``device`` (``cuda`` unless given); the corpus buffer, the delta and the
 bitmap stay on the host. The mesh is P shards on that one device
-(``compat.LocalMesh``). ``quantized=`` without ``shards=`` raises
+(``compat.LocalMesh``), or one shard per rank of a process group
+(``mesh=`` a ``compat.ProcessGroupMesh``, or ``shards="auto"`` inside a
+default group): every rank calls the same constructor on the same rows and
+builds only its own shard; rank 0 owns the scheduler and the cache and
+serves, every other rank follows rank 0's operations
+(``serve.scheduler.follow``) inside its constructor until rank 0's
+``close()``. ``quantized=`` without ``shards=`` raises
 ``NotImplementedError``: the reference's single-host engine cannot serve a
 quantized graph either, so there is nothing to port; pass ``shards=`` with
 ``quantized=``.
@@ -38,7 +44,8 @@ from repro_torch.index.mutable import (MutableBackend, MutableIndex,
                                        refuse_unported)
 from repro_torch.serve.query import Query
 from repro_torch.serve.scheduler import (LaneScheduler, RequestDeferred,
-                                         RequestShed, SchedulerSaturated)
+                                         RequestShed, SchedulerSaturated,
+                                         follow)
 from repro_torch.sharded_search.engine import ShardedEngine
 
 __all__ = ["DiverseVectorDB", "Query"]
@@ -57,8 +64,16 @@ class DiverseVectorDB:
       optionally supplies the mesh; by default one of ``shards`` on the
       ``axis`` axis). The corpus is padded with tombstoned rows to split
       evenly. ``shards="auto"`` picks the largest power of two
-      ``compat.device_count()`` allows — or, under ``elastic=``, half of
-      it, leaving room to grow.
+      ``compat.device_count()`` allows (the world size inside a default
+      process group) — or, under ``elastic=``, half of it, leaving room to
+      grow.
+    * ``mesh=`` a ``compat.ProcessGroupMesh`` (or ``shards="auto"`` inside
+      a default group, over its whole world) serves one shard per rank: the
+      serving mesh is the group's first ``shards`` ranks (``mesh.sub``),
+      and the elastic targets' sub-meshes are made here on every rank. On
+      rank 0 the constructor returns a serving facade; on every other rank
+      it follows rank 0 until rank 0's ``close()`` and then returns one
+      that serves nothing (``scheduler`` None).
     * ``elastic=`` (True or a ``serve.scheduler.ElasticPolicy``) makes the
       sharded mesh follow traffic (contract 16): the two standard targets
       (the device-count power of two and its half) are resharded and
@@ -96,12 +111,21 @@ class DiverseVectorDB:
                  scheduler_kw: dict | None = None, device=None):
         refuse_unported(shards=shards, quantized=quantized)
         self.embed = embed
+        self._closed = False
         elastic = elastic or None
+        world = mesh if isinstance(mesh, compat.ProcessGroupMesh) else None
+        if (world is None and mesh is None and shards == "auto"
+                and compat.in_process_group()):
+            world = compat.make_process_mesh((compat.device_count(),),
+                                             (axis,), device=device)
+        #: the process group's mesh of every rank (None on one process)
+        self.world = world
+        n_dev = world.size if world is not None else compat.device_count()
         shard_align = None
         elastic_targets: tuple[int, ...] = ()
         if shards == "auto" or elastic is not None:
             p_big = 1
-            while p_big * 2 <= compat.device_count():
+            while p_big * 2 <= n_dev:
                 p_big *= 2
         if shards == "auto":
             # leave room to grow when elastic; otherwise the whole mesh
@@ -113,7 +137,7 @@ class DiverseVectorDB:
             if p_big < 2:
                 raise ValueError(
                     "elastic serving needs >= 2 devices to scale between "
-                    f"(found {compat.device_count()})")
+                    f"(found {n_dev})")
             p_small = p_big // 2
             if shards not in (p_small, p_big):
                 raise ValueError(
@@ -123,11 +147,20 @@ class DiverseVectorDB:
             elastic_targets = tuple(t for t in (p_small, p_big)
                                     if t != shards)
             shard_align = p_big
+        target_meshes = {}
+        if world is not None:
+            if shards is None or shards > world.size:
+                raise ValueError(
+                    f"a process group of {world.size} ranks serves 1 to "
+                    f"{world.size} shards, got shards={shards}")
+            # every rank makes the sub-groups, in this order
+            mesh = world.sub(shards)
+            target_meshes = {t: world.sub(t) for t in elastic_targets}
         self.index = MutableIndex(
             vectors, metric, graph=index, delta_capacity=delta_capacity,
             M=M, builder=builder, shards=shards, shard_align=shard_align,
             quantized=quantized, background=background_rebuild, seed=seed,
-            device=device)
+            device=device, rank=None if world is None else world.rank)
         backend_kw = dict(backend_kw or {})
         if shards is not None:
             if mesh is None:
@@ -146,6 +179,13 @@ class DiverseVectorDB:
                 self.index.graph, num_lanes, max_k=max_k,
                 default_ef=default_ef, **backend_kw)
         self.backend = MutableBackend(engine, self.index)
+        if world is not None and world.rank != 0:
+            # rank 0 decides: its scheduler's prewarm, the targets below,
+            # every write, swap, admission and round reach this rank here
+            self.scheduler = None
+            self.follower_steps = follow(self.backend)
+            self._closed = True
+            return
         skw = dict(scheduler_kw or {})
         self.scheduler = LaneScheduler(
             backend=self.backend, policy=policy, cost_model=cost_model,
@@ -157,8 +197,9 @@ class DiverseVectorDB:
         # with its shards (floor 1), so a grow adds lanes and a shrink
         # returns them.
         for t in elastic_targets:
-            self.backend.prepare_rescale(
-                t, compat.make_mesh((t,), (axis,), device=self.index.device),
+            self.scheduler.backend.prepare_rescale(
+                t, target_meshes.get(t) or compat.make_mesh(
+                    (t,), (axis,), device=self.index.device),
                 M=M, builder=builder, prewarm=prewarm,
                 max_capacity=skw.get("prewarm_capacity"),
                 ks=tuple(skw.get("prewarm_ks") or ()),
@@ -261,12 +302,20 @@ class DiverseVectorDB:
         ``wait`` the built graph is also swapped in (the engine is drained
         first — the swap needs idle lanes). Returns True if the swap was
         installed."""
-        self.index.request_rebuild()
+        backend = self.scheduler.backend   # over ranks: broadcast
+        backend.request_rebuild()
         if not wait:
             return False
         self.index.wait_rebuild()
         self.scheduler.drain()
-        return self.backend.maybe_swap()
+        return backend.maybe_swap()
+
+    def close(self) -> None:
+        """End the other ranks' loops (a facade over a process group; the
+        facade serves no more after it). Nothing to do on one process."""
+        if not self._closed and self.scheduler is not None:
+            self.scheduler.close()
+        self._closed = True
 
     # -- reporting -----------------------------------------------------------
     def stats(self) -> dict:

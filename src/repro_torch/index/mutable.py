@@ -36,6 +36,13 @@ progressive search machinery stays untouched:
   ``ShardedEngine`` the backend is a ``RescalableMutableBackend``: a
   rescale moves the epoch's index to the new shard count, and a rebuild
   that was built for the old count is resharded when it swaps in.
+* **Over a process group** (``rank=``, one shard per rank) every rank
+  keeps the same host buffer, delta and bitmap, because every rank applies
+  rank 0's writes in rank 0's order (``serve.scheduler.RankZeroBackend``
+  broadcasts them); each rank builds only its own shard of an epoch (none
+  when it lies outside the serving mesh), and a swap is rank 0's decision,
+  broadcast: a rank that receives it waits for its own rebuild and
+  installs it. The harvest's merge and audit run on rank 0 only.
 
 Contract 15 (``docs/ARCHITECTURE.md``): a search straddling an epoch swap
 returns results valid against one epoch or the other, never a mix — every
@@ -111,6 +118,9 @@ class MutableIndex:
     rows in place). A sharded corpus is padded with tombstoned zero rows so
     every epoch splits evenly across ``shard_align`` (default ``shards``)
     shards; ``quantized`` in {"int8", "pq"} stores its shards compressed.
+    ``rank`` (a process group's rank, sharded corpora only) builds that
+    rank's shard of each epoch alone: shard ``rank`` of ``shards``, the
+    group's first ranks serving, none on a rank past them.
     """
 
     def __init__(self, vectors=None, metric: str = "l2", *,
@@ -119,7 +129,8 @@ class MutableIndex:
                  builder: str = "knng", shards: int | None = None,
                  shard_align: int | None = None,
                  quantized: str | None = None, scale_rows: int = 8,
-                 background: bool = True, seed: int = 0, device=None):
+                 background: bool = True, seed: int = 0, device=None,
+                 rank: int | None = None):
         if builder not in ("knng", "hnsw"):
             raise ValueError(f"unknown builder {builder!r}")
         refuse_unported(shards=shards, quantized=quantized)
@@ -163,6 +174,10 @@ class MutableIndex:
                 raise ValueError(
                     f"shard_align={self.shard_align} must be a multiple of "
                     f"shards={self.shards}")
+        if rank is not None and not self.shards:
+            raise ValueError("rank= builds a rank's shard of a sharded "
+                             "corpus (pass shards=)")
+        self.rank = rank
         self.quantized = quantized
         self.scale_rows = int(scale_rows)
         self.background = bool(background)
@@ -464,11 +479,14 @@ class MutableIndex:
         stay in place so ids remain positional)."""
         if self.shards is not None:
             from repro_torch.sharded_search.search import build_sharded_index
+            shards = self.shards
+            shard = (None if self.rank is None
+                     else self.rank if self.rank < shards else -1)
             return build_sharded_index(
-                snap, self.shards, self.metric, M=self.M,
+                snap, shards, self.metric, M=self.M,
                 builder=self.builder, quantized=self.quantized,
                 scale_rows=self.scale_rows, seed=self.seed,
-                device=self.device)
+                device=self.device, shard=shard)
         if self.builder == "hnsw":
             from repro_torch.index.hnsw import build_hnsw
             return build_hnsw(snap, self.metric, M=self.M, seed=self.seed,
@@ -638,7 +656,25 @@ class MutableBackend:
     def prewarm(self, **kw) -> None:
         self.inner.prewarm(**kw)
 
+    @property
+    def mesh(self):
+        return getattr(self.inner, "mesh", None)
+
     # -- the write-aware surface ---------------------------------------------
+    def write(self, op: str, payload) -> np.ndarray:
+        """Apply one corpus write to the mutable index: ``"upsert"`` of
+        ``[m, d]`` vectors returns their ids, ``"delete"`` the ids it
+        named."""
+        if op == "upsert":
+            return self.mutable_index.upsert(payload)
+        ids = np.asarray(payload, np.int64).reshape(-1)
+        self.mutable_index.delete(ids)
+        return ids
+
+    def request_rebuild(self) -> bool:
+        """``MutableIndex.request_rebuild`` on the backend's index."""
+        return self.mutable_index.request_rebuild()
+
     def maybe_swap(self) -> bool:
         """Install a pending epoch swap if the engine is idle (between
         rounds, no occupied lanes); returns True when a swap landed."""
@@ -646,6 +682,18 @@ class MutableBackend:
             return False
         if self.inner.active_count():
             return False
+        return self._install()
+
+    def follow_swap(self) -> None:
+        """Install the swap rank 0 decided: wait for this rank's own
+        rebuild (it may still be building), then install it."""
+        self.mutable_index.wait_rebuild()
+        if self.inner.active_count() or not self.mutable_index.swap_ready():
+            raise RuntimeError("rank 0 swapped an epoch this rank cannot "
+                               "install (lanes occupied or no rebuild)")
+        self._install()
+
+    def _install(self) -> bool:
         index = self.mutable_index
         art = index.install_swap()
         if index.shards is None:
@@ -659,10 +707,12 @@ class MutableBackend:
             # a rescale landed while the background rebuild ran: the rebuilt
             # epoch targets the old shard count — repartition it onto the
             # serving one (same rows, exact re-blocking)
-            from repro_torch.sharded_search.search import reshard_index
+            from repro_torch.sharded_search.search import (rank_shard,
+                                                           reshard_index)
             art = reshard_index(art, int(self.inner.num_shards),
                                 index.float_view()[:n_epoch], M=index.M,
-                                builder=index.builder)
+                                builder=index.builder,
+                                shard=rank_shard(self.inner.mesh))
             index.sharded = art
             index.shards = int(self.inner.num_shards)
             self.reshards += 1
@@ -706,6 +756,10 @@ class RescalableMutableBackend(MutableBackend):
     @property
     def num_shards(self) -> int:
         return self.inner.num_shards
+
+    @property
+    def rescale_gathered_bytes(self) -> int:
+        return self.inner.rescale_gathered_bytes
 
     def prepare_rescale(self, shards: int, mesh, index=None, **kw):
         return self.inner.prepare_rescale(shards, mesh, index, **kw)

@@ -20,11 +20,26 @@ p50/p99 and the cross-tenant Jain index are printed when N > 1.
 instead of the single-host engine: the corpus is partitioned across the
 mesh's data axis and the *same* scheduler drives a
 ``sharded_search.engine.ShardedEngine`` backend (shard-local beams,
-tournament merge, per-lane progressive budgets); the mesh is P shards on
-the one device (``compat.device_count()`` slots). ``--elastic`` instead
+tournament merge, per-lane progressive budgets); in one process the mesh
+is P shards on the one device (``compat.device_count()`` slots). ``--elastic`` instead
 starts on half the available power-of-two devices and lets the scheduler
 grow/shrink the shard count under sustained queue depth, migrating
 in-flight lanes between rounds (contract 16).
+
+Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` in the environment) the mesh
+is one shard per rank: the process group is made with ``--backend`` (no
+default: ``nccl`` with one card per rank, ``gloo`` on the CPU or with
+ranks sharing a card) from torchrun's ``env://`` rendezvous (or
+``--init-method``), each rank on ``cuda:LOCAL_RANK`` modulo the cards it
+sees (with ``--device cuda``, the default), ``--mesh-shards P`` serves over
+the group's first P ranks and ``--elastic`` starts on half of them. Rank 0
+runs the pipeline and prints what one process prints; the other ranks
+follow its facade until it closes:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --backend gloo --mesh-shards 4
+
+Without those variables nothing changes.
 
 ``--cache-size N`` enables the semantic result cache (``serve.cache``):
 repeated or near-duplicate queries are answered from a certified cached
@@ -54,27 +69,55 @@ from repro_torch.serve.policies import ExpansionCostModel
 from repro_torch.serve.rag import RagPipeline
 
 
-def _build_db(docs: np.ndarray, args, cost_model) -> DiverseVectorDB:
+def _build_db(docs: np.ndarray, args, cost_model, world=None,
+              device=None) -> DiverseVectorDB:
+    """The facade the flags ask for; over ``world`` (a process group's
+    mesh) on every rank, returning on the other ranks once rank 0 closed
+    it."""
+    n_dev = world.size if world is not None else compat.device_count()
     shards = args.mesh_shards or None
     if args.elastic:
         if args.mesh_shards:
             raise SystemExit("--elastic picks its own shard counts "
                              "(shards='auto'); drop --mesh-shards")
-        if compat.device_count() < 2:
+        if n_dev < 2:
             raise SystemExit("--elastic needs >= 2 devices")
         shards = "auto"
+    if world is not None and shards is None:
+        raise SystemExit("under torchrun, pass --mesh-shards or --elastic "
+                         "(the ranks serve one shard each)")
     if shards and shards != "auto":
         if shards & (shards - 1):
             raise SystemExit(f"--mesh-shards {shards} must be a power of "
                              "two (tournament merge)")
-        if shards > compat.device_count():
-            raise SystemExit(f"--mesh-shards {shards} > "
-                             f"{compat.device_count()} devices")
+        if shards > n_dev:
+            raise SystemExit(f"--mesh-shards {shards} > {n_dev} devices")
     return DiverseVectorDB(docs, "ip", shards=shards, num_lanes=args.lanes,
                            max_k=max(args.k, 16), M=8, policy=args.policy,
                            cache_size=args.cache_size, cost_model=cost_model,
                            prewarm=args.prewarm, elastic=args.elastic or None,
-                           device=args.device)
+                           mesh=world, device=device or args.device)
+
+
+def _torchrun_mesh(args):
+    """The one-axis mesh over torchrun's ranks, and this rank's device."""
+    import torch
+
+    from repro_torch import resolve_device
+
+    if args.backend is None:
+        raise SystemExit("under torchrun, pass --backend nccl or gloo")
+    world = int(os.environ["WORLD_SIZE"])
+    device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    mesh = compat.make_process_mesh(
+        (world,), ("data",), backend=args.backend,
+        init_method=args.init_method, rank=int(os.environ["RANK"]),
+        world_size=world, device=device)
+    return mesh, device
 
 
 def main(argv=None):
@@ -123,6 +166,11 @@ def main(argv=None):
                     help="pre-compile the scheduler's capacity ladder")
     ap.add_argument("--device", default="cuda",
                     help="where the index, the engine and the model run")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the process group's backend under torchrun")
+    ap.add_argument("--init-method", default="env://",
+                    help="the process group's rendezvous under torchrun "
+                         "(its env:// unless given)")
     args = ap.parse_args(argv)
 
     rng = np.random.default_rng(0)
@@ -132,14 +180,22 @@ def main(argv=None):
                          "scheduler")
     if args.upserts and args.engine != "scheduler":
         raise SystemExit("--upserts requires --engine scheduler")
+    world, device = None, args.device
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        world, device = _torchrun_mesh(args)
+    if world is not None and world.rank != 0:
+        # follow rank 0's facade until it closes; rank 0 serves
+        _build_db(docs, args, None, world, device)
+        _leave()
+        return 0
     cfg = get_config(args.arch).reduced()
-    params = M.init_params(cfg, 0, device=args.device)
+    params = M.init_params(cfg, 0, device=device)
     cost_model = None
     if args.cost_model_path and os.path.exists(args.cost_model_path):
         cost_model = ExpansionCostModel.load(args.cost_model_path)
         print(f"# cost model warm-started from {args.cost_model_path} "
               f"({cost_model.stats()['observations']} observations)")
-    db = _build_db(docs, args, cost_model)
+    db = _build_db(docs, args, cost_model, world, device)
     pipe = RagPipeline(cfg, params, k=args.k, eps=args.eps,
                        engine=args.engine, num_lanes=args.lanes,
                        prewarm=args.prewarm, policy=args.policy,
@@ -211,7 +267,16 @@ def main(argv=None):
         if args.cost_model_path:
             pipe.scheduler.cost_model.save(args.cost_model_path)
             print(f"# cost model saved to {args.cost_model_path}")
+    if world is not None:
+        db.close()
+        _leave()
+    return 0
+
+
+def _leave() -> None:
+    import torch.distributed as dist
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -48,12 +48,16 @@ results). ``tests/test_torch_scheduler.py`` holds the scheduler against the
 reference's. See ``docs/ARCHITECTURE.md`` for the full contract map.
 
 Over a process group (a ``ShardedEngine`` on a ``compat.ProcessGroupMesh``,
-one shard per rank) the clock and the policies decide, so only rank 0
-decides: its scheduler drives the engine through :class:`RankZeroBackend`,
-which broadcasts each pump step's admit / recycle operations (and the
-prewarm) to the other ranks before it steps, and the other ranks apply
-them in :func:`follow` and step with it. Results and ``latency_stats`` are
-rank 0's; :meth:`LaneScheduler.close` ends the followers' loops.
+one shard per rank, bare or under a ``MutableBackend``) the clock and the
+policies decide, so only rank 0 decides: its scheduler drives the engine
+through :class:`RankZeroBackend`, which broadcasts, in rank 0's order, each
+pump's admits and recycles, every applied write, each rebuild request and
+epoch swap, the prewarm and the elastic ``prepare_rescale`` / ``rescale``;
+the other ranks apply them in :func:`follow` and step with it. A rank
+outside the serving mesh (an elastic facade on fewer shards than ranks)
+applies the writes, swaps and scale events but runs no round. Results and
+``latency_stats`` are rank 0's; :meth:`LaneScheduler.close` ends the
+followers' loops.
 """
 from __future__ import annotations
 
@@ -110,31 +114,88 @@ class RequestDeferred(RuntimeError):
 class RankZeroBackend:
     """Rank 0's side of a backend that steps across a process group.
 
-    ``admit`` and ``recycle`` run on the local engine and are queued; each
-    ``step`` broadcasts the queue (then the step itself) to the other
-    ranks, which apply the same operations in :func:`follow` before they
-    step, so every rank's engine holds the same admissions when the round's
-    collectives run. ``prewarm`` is broadcast and run the same way.
-    Everything else is read from the local engine."""
+    Operations that only change host state here (``admit``, ``recycle``, a
+    write, a rebuild request, an epoch swap) run on the local backend and
+    are queued; each ``step`` broadcasts the queue (then the step itself)
+    over the group's mesh (``mesh.world``) to the other ranks, which apply
+    the same operations in :func:`follow` before they step, so every rank
+    holds the same admissions, corpus and epoch when the round's
+    collectives run. ``prewarm``, ``prepare_rescale`` and ``rescale`` run
+    collectives of their own, so each is broadcast at once and run the
+    same way. Every protocol member is spelled out (Python 3.12's
+    ``isinstance`` against a runtime-checkable protocol does not see
+    members reached through ``__getattr__``); anything else is read from
+    the local backend."""
 
     def __init__(self, backend):
-        self.inner = backend
-        self.mesh = backend.mesh
-        self._ops: list[tuple] = []
+        object.__setattr__(self, "inner", backend)
+        object.__setattr__(self, "world", backend.mesh.world)
+        object.__setattr__(self, "_ops", [])
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
     def __setattr__(self, name, value):
-        if name in ("inner", "mesh", "_ops"):
-            object.__setattr__(self, name, value)
-        else:
-            setattr(self.inner, name, value)
+        setattr(self.inner, name, value)
 
     def _send(self, *ops) -> None:
-        self.mesh.broadcast_object(self._ops + list(ops), src=0)
-        self._ops = []
+        self.world.broadcast_object(self._ops + list(ops), src=0)
+        self._ops.clear()
 
+    # -- the protocol, read from the local backend ----------------------------
+    @property
+    def mesh(self):
+        return self.inner.mesh
+
+    @property
+    def num_lanes(self) -> int:
+        return self.inner.num_lanes
+
+    @property
+    def max_k(self) -> int:
+        return self.inner.max_k
+
+    @property
+    def default_ef(self) -> int:
+        return self.inner.default_ef
+
+    @property
+    def methods(self):
+        return self.inner.methods
+
+    @property
+    def compressed(self) -> bool:
+        return self.inner.compressed
+
+    @property
+    def bytes_per_vector(self) -> float:
+        return self.inner.bytes_per_vector
+
+    @property
+    def signature_log(self):
+        return self.inner.signature_log
+
+    @property
+    def num_shards(self) -> int:
+        return self.inner.num_shards
+
+    def free_lanes(self):
+        swaps = getattr(self.inner, "swaps", None)
+        free = self.inner.free_lanes()
+        if swaps is not None and self.inner.swaps != swaps:
+            self._ops.append(("swap",))   # the drain barrier installed it
+        return free
+
+    def active_count(self) -> int:
+        return self.inner.active_count()
+
+    def harvest(self):
+        return self.inner.harvest()
+
+    def rescale_options(self) -> tuple[int, ...]:
+        return self.inner.rescale_options()
+
+    # -- queued: host state only --------------------------------------------
     def admit(self, lane: int, request: LaneRequest) -> None:
         self.inner.admit(lane, request)
         self._ops.append(("admit", int(lane), dict(
@@ -146,9 +207,43 @@ class RankZeroBackend:
         self.inner.recycle(lane)
         self._ops.append(("recycle", int(lane)))
 
+    def write(self, op: str, payload):
+        ids = self.inner.write(op, payload)
+        self._ops.append(("write", op, np.asarray(payload)))
+        return ids
+
+    def request_rebuild(self) -> bool:
+        started = self.inner.request_rebuild()
+        self._ops.append(("rebuild",))
+        return started
+
+    def maybe_swap(self) -> bool:
+        swapped = self.inner.maybe_swap()
+        if swapped:
+            self._ops.append(("swap",))
+        return swapped
+
+    # -- broadcast at once: they run collectives -------------------------------
     def prewarm(self, **kw):
         self._send(("prewarm", kw))
         return self.inner.prewarm(**kw)
+
+    def prepare_rescale(self, shards: int, mesh, index=None, **kw):
+        """``prepare_rescale`` on every rank; ``mesh`` must be the group
+        mesh's ``sub(shards)`` (each rank takes its own), and a given
+        ``index`` travels whole (each rank keeps its part)."""
+        from repro_torch.sharded_search.search import index_to_host
+
+        if mesh is not self.world.sub(shards):
+            raise ValueError("over a process group the target mesh is the "
+                             f"group mesh's sub({shards})")
+        self._send(("prepare_rescale", int(shards),
+                    None if index is None else index_to_host(index), kw))
+        return self.inner.prepare_rescale(shards, mesh, index, **kw)
+
+    def rescale(self, shards: int) -> bool:
+        self._send(("rescale", int(shards)))
+        return self.inner.rescale(shards)
 
     def step(self):
         self._send(("step",))
@@ -156,41 +251,68 @@ class RankZeroBackend:
 
     def close(self) -> None:
         """Send the pending operations and the end of the followers'
-        loops."""
+        loops, and wait until every follower has received them (a rank
+        that leaves the group while a follower still reads its last
+        message aborts that follower)."""
         self._send(("stop",))
+        self.world.barrier()
 
 
 def follow(backend) -> int:
     """The loop of a rank other than 0: apply rank 0's broadcast
     operations to ``backend`` (a ``ShardedEngine`` on the same process
-    group) and step with it, until rank 0's scheduler closes. Returns the
-    steps taken."""
-    mesh = backend.mesh
-    if mesh.rank == 0:
+    group, bare or under a ``MutableBackend``) and step with it, until rank
+    0's scheduler closes. While the rank is outside the serving mesh it
+    applies writes, swaps and scale events but no admission and no round.
+    The harvest's merge and audit are rank 0's: a step here only drains
+    the engine's finished lanes. Returns the steps taken."""
+    from repro_torch.sharded_search.search import index_from_host
+
+    engine = getattr(backend, "inner", backend)
+    world = engine.mesh.world
+    if world.rank == 0:
         raise ValueError("rank 0 decides: it runs the LaneScheduler")
     steps = 0
     while True:
-        for op in mesh.broadcast_object(None, src=0):
-            kind = op[0]
+        for op in world.broadcast_object(None, src=0):
+            kind, serving = op[0], engine.member
             if kind == "admit":
-                backend.admit(op[1], LaneRequest(**op[2]))
+                if serving:
+                    backend.admit(op[1], LaneRequest(**op[2]))
             elif kind == "recycle":
-                backend.recycle(op[1])
+                if serving:
+                    backend.recycle(op[1])
+            elif kind == "step":
+                if serving:
+                    backend.step()
+                    engine.harvest()
+                    steps += 1
             elif kind == "prewarm":
                 backend.prewarm(**op[1])
-            elif kind == "step":
-                backend.step()
-                backend.harvest()
-                steps += 1
+            elif kind == "write":
+                backend.write(op[1], op[2])
+            elif kind == "rebuild":
+                backend.request_rebuild()
+            elif kind == "swap":
+                backend.follow_swap()
+            elif kind == "prepare_rescale":
+                shards, host, kw = op[1:]
+                index = (None if host is None else
+                         index_from_host(host, device=engine.index.device))
+                backend.prepare_rescale(shards, world.sub(shards), index,
+                                        **kw)
+            elif kind == "rescale":
+                backend.rescale(op[1])
             elif kind == "stop":
+                world.barrier()          # rank 0's close waits for it
                 return steps
             else:
                 raise ValueError(f"unknown operation {kind!r} from rank 0")
 
 
 def _spans_ranks(backend) -> bool:
-    mesh = getattr(backend, "mesh", None)
-    return mesh is not None and getattr(mesh, "local_size", 1) != mesh.size
+    from repro_torch.sharded_search.search import spans_ranks
+    return spans_ranks(getattr(backend, "mesh", None))
 
 
 @dataclasses.dataclass(eq=False)
@@ -412,14 +534,11 @@ class LaneScheduler:
                     f"{overridden} are backend-construction parameters — "
                     "configure them on the backend, not the scheduler")
         if _spans_ranks(backend):
-            if backend.mesh.rank != 0:
+            rank = backend.mesh.world.rank
+            if rank != 0:
                 raise ValueError(
-                    f"rank {backend.mesh.rank} of the process group follows "
-                    "rank 0's scheduler: call serve.scheduler.follow(backend)")
-            if elastic:
-                raise NotImplementedError(
-                    "elastic= over a process-group mesh: rescaling across "
-                    "group sizes is ROADMAP queue 1 D.2")
+                    f"rank {rank} of the process group follows rank 0's "
+                    "scheduler: call serve.scheduler.follow(backend)")
             backend = RankZeroBackend(backend)
         self.backend = backend
         self.engine = backend   # legacy alias
@@ -470,6 +589,8 @@ class LaneScheduler:
         self._next_rid = 0
         self._next_wid = 0
         self.steps = 0
+        #: pumps so far (a scale event records the pump it landed at)
+        self.pumps = 0
         if elastic:
             if not isinstance(backend, RescalableBackend):
                 raise ValueError(
@@ -481,7 +602,8 @@ class LaneScheduler:
             self.elastic = None
         #: one dict per scale event: when, from/to shard counts, the
         #: migration pause (seconds the pump boundary spent inside
-        #: ``backend.rescale``), and the queue state that triggered it
+        #: ``backend.rescale``), the queue state that triggered it, the
+        #: pump it landed at and the bytes it gathered across ranks
         self.scale_events: list[dict] = []
         self._elastic_hot = 0
         self._elastic_cold = 0
@@ -649,14 +771,9 @@ class LaneScheduler:
         admission order) and invalidate intersecting cache entries; returns
         the applied tickets. Runs automatically at the top of ``pump()``."""
         applied: list[WriteTicket] = []
-        index = self.backend.mutable_index
         while self.write_queue:
             t = self.write_queue.popleft()
-            if t.op == "upsert":
-                t.ids = index.upsert(t.payload)
-            else:
-                t.ids = np.asarray(t.payload, np.int64).reshape(-1)
-                index.delete(t.ids)
+            t.ids = self.backend.write(t.op, t.payload)
             t.t_applied = self.clock()
             if self.cache is not None:
                 self.total_cache_invalidations += self.cache.invalidate(t.ids)
@@ -716,7 +833,9 @@ class LaneScheduler:
             self.scale_events.append(dict(
                 t=t0, from_shards=cur, to_shards=int(target),
                 pause_s=self.clock() - t0, pending=depth,
-                inflight=len(self.inflight)))
+                inflight=len(self.inflight), pump=self.pumps,
+                gathered_bytes=int(getattr(self.backend,
+                                           "rescale_gathered_bytes", 0))))
             # serving capacity may follow the mesh (lane-scaled targets)
             self.num_lanes = int(self.backend.num_lanes)
         self._elastic_hot = self._elastic_cold = 0
@@ -733,6 +852,7 @@ class LaneScheduler:
         is the write boundary (contract 15) and, under ``elastic=``, the
         scale boundary (contract 16: in-flight lanes migrate, nothing
         drains)."""
+        self.pumps += 1
         if self.write_queue:
             self.apply_writes()
         if self.elastic is not None:

@@ -1,6 +1,6 @@
 """Sharded diverse search over P shards on one device or one shard per
-rank of a process group, with elastic resharding between shard counts on
-one device (port of ``repro.sharded_search``)."""
+rank of a process group, with elastic resharding between shard counts,
+in one process or across the ranks (port of ``repro.sharded_search``)."""
 from repro_torch.sharded_search.engine import ShardedEngine
 from repro_torch.sharded_search.search import (ShardedIndex, ShardedSearchState,
                                                beam_state_capacity,

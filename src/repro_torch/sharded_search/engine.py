@@ -40,9 +40,14 @@ every rank runs this host state machine on the same admissions (SPMD): the
 buckets, budgets and certificates depend on the admissions and on the
 replicated merged candidates only, so every rank dispatches the same
 rounds and reaches the same results. ``serve.scheduler`` keeps the ranks'
-admissions equal (rank 0 decides, the others follow). Rescaling across
-group sizes is ROADMAP queue 1 D.2: ``prepare_rescale`` and ``rescale``
-refuse such a mesh.
+admissions equal (rank 0 decides, the others follow). The mesh may be the
+group's first ranks only (``ProcessGroupMesh.sub``): a rank outside it
+holds an index with no local shard and runs no round. Rescaling moves
+between such meshes: every rank of the group calls ``prepare_rescale``
+(its part of the target built from the host rows it keeps) and
+``rescale`` (the old mesh's state gathered over the group, its part of
+the target kept). At a grow, ranks that were outside take rank 0's host
+lane state, broadcast inside the event.
 """
 from __future__ import annotations
 
@@ -54,15 +59,29 @@ from repro_torch.core.batch_progressive import SignatureLog
 from repro_torch.core.bucketing import next_pow2, pow2_group_sizes
 from repro_torch.core.pgs import DiverseResult
 from repro_torch.core.progressive import SearchStats
-from repro_torch.sharded_search.search import (ShardedIndex,
+from repro_torch.sharded_search.search import (ShardedIndex, _empty_state,
                                                beam_state_capacity,
+                                               index_from_host,
+                                               index_to_host,
                                                init_sharded_state,
+                                               local_shard,
                                                migrate_sharded_state,
-                                               reshard_index,
+                                               rank_shard, reshard_index,
                                                sharded_diverse_resume,
                                                sharded_diverse_search)
 
 LANE_FREE, LANE_RUN, LANE_DONE = range(3)
+
+
+def adopt_index(index: ShardedIndex, mesh) -> ShardedIndex:
+    """``index`` as ``mesh`` serves it: a whole index given over a process
+    group becomes this rank's part (its shard, or none outside the mesh);
+    anything else as it is."""
+    shard = rank_shard(mesh)
+    if shard is None or index.total_shards:
+        return index
+    return index_from_host(local_shard(index_to_host(index), shard),
+                           device=index.device)
 
 
 class ShardedEngine:
@@ -76,6 +95,8 @@ class ShardedEngine:
     (``last_candidates``) so certificates can be re-checked independently.
     The float corpus ``all_vectors`` is kept on the index's device; for a
     quantized index it stays on the host, read only by the exact rerank.
+    Over a process group ``index`` is this rank's part (a whole index is
+    cut to it, ``adopt_index``) and ``all_vectors`` the whole corpus.
     """
 
     methods = ("sharded",)
@@ -89,6 +110,7 @@ class ShardedEngine:
                  record_candidates: bool = False):
         if resume not in ("beam", "scratch"):
             raise ValueError(f"unknown resume mode {resume!r}")
+        index = adopt_index(index, mesh)
         self._set_corpus(index, all_vectors)
         self.mesh = mesh
         self.axis = axis
@@ -129,6 +151,8 @@ class ShardedEngine:
         #: prepared elastic targets: shard count -> (mesh, index, lanes),
         #: resharded and run once ahead of the scale event
         self._rescale_targets: dict[int, tuple] = {}
+        #: bytes the last scale event gathered across ranks
+        self.rescale_gathered_bytes = 0
 
     def _set_corpus(self, index: ShardedIndex, all_vectors) -> None:
         self.index = index
@@ -165,6 +189,13 @@ class ShardedEngine:
     @property
     def num_shards(self) -> int:
         return self.index.num_shards
+
+    @property
+    def member(self) -> bool:
+        """Whether this process holds a shard of the serving mesh (always
+        on one process; outside a process group's sub-mesh it runs no
+        round)."""
+        return self.mesh.local_size > 0
 
     @property
     def bytes_per_vector(self) -> float:
@@ -351,17 +382,15 @@ class ShardedEngine:
         current one): serving capacity follows the mesh. A lane shrink
         applies at ``rescale`` only when the tail lanes are free then.
         """
-        self._check_local("prepare_rescale")
         if shards & (shards - 1) or shards < 1:
             raise ValueError(f"shards={shards} must be a power of two")
         B_t = int(num_lanes or self.B)
         if B_t < 1:
             raise ValueError(f"num_lanes={B_t} must be >= 1")
         if index is None:
-            index = reshard_index(
-                self.index, shards,
-                self.all_vectors if self.compressed else None,
-                M=M, builder=builder)
+            index = reshard_index(self.index, shards, self.all_vectors, M=M,
+                                  builder=builder, shard=rank_shard(mesh))
+        index = adopt_index(index, mesh)
         if index.num_shards != shards:
             raise ValueError(f"prepared index has {index.num_shards} "
                              f"shards, expected {shards}")
@@ -370,7 +399,7 @@ class ShardedEngine:
                              "(resharding is a capacity knob)")
         self.signatures.note("rescale", shards)
         self.signatures.note("rescale", self.index.num_shards)
-        if prewarm and shards != self.index.num_shards:
+        if prewarm and shards != self.index.num_shards and mesh.local_size:
             state = (init_sharded_state(index, B_t,
                                         self._target_capacity(index), mesh,
                                         self.axis)
@@ -418,6 +447,12 @@ class ShardedEngine:
         """Move the corpus and every in-flight lane to the prepared
         ``shards`` target, between rounds, without draining.
 
+        Over a process group every rank of the group calls it: at a grow,
+        ranks that were outside the old mesh first take rank 0's host lane
+        state (one broadcast), then the state migrates by one gather over
+        the group (``rescale_gathered_bytes``); a rank left outside the new
+        mesh frees its host lanes.
+
         The carried state migrates (``migrate_sharded_state``: queues
         re-bucketed by global id, visited rows and per-lane step totals
         kept), so occupied lanes resume their budget ladder on the new
@@ -429,7 +464,6 @@ class ShardedEngine:
         ``shards``; raises if the target was never prepared."""
         if shards == self.index.num_shards:
             return False
-        self._check_local("rescale")
         target = self._rescale_targets.get(shards)
         if target is None:
             raise RuntimeError(
@@ -437,36 +471,67 @@ class ShardedEngine:
                 "prepare_rescale first (resharding is the expensive half; "
                 "the scale event itself must not pay it)")
         mesh, index, B_new = target
+        world = getattr(mesh, "world", None)
+        if rank_shard(mesh) is not None and mesh.size > self.mesh.size:
+            self._sync_lanes(world)
         self._rescale_targets[self.index.num_shards] = (self.mesh,
                                                         self.index, self.B)
         if B_new < self.B and (self.status[B_new:] != LANE_FREE).any():
             B_new = self.B   # occupied tail: keep width, move shards only
+        gathered = world.gathered_bytes if world is not None else 0
         if self.resume == "beam":
             self.beam_state = migrate_sharded_state(
                 self.beam_state, shards, self._target_capacity(index),
-                mesh=mesh, axis=self.axis, num_lanes=B_new)
+                mesh=mesh, axis=self.axis, num_lanes=B_new,
+                old_mesh=self.mesh)
+        if world is not None:
+            self.rescale_gathered_bytes = world.gathered_bytes - gathered
         if B_new != self.B:
             self._resize_lanes(B_new)
         self.index = index
         self.mesh = mesh
+        if not self.member:
+            # outside the new mesh: no lane of its runs here; a grow brings
+            # rank 0's lane state back
+            self.status[:] = LANE_FREE
+            self._unharvested = []
         self.signatures.note("rescale", shards)
         return True
 
-    def _check_local(self, what: str) -> None:
-        if self.mesh.local_size != self.mesh.size:
-            raise NotImplementedError(
-                f"{what} over a process-group mesh: elastic rescaling across "
-                "group sizes is ROADMAP queue 1 D.2")
+    def _sync_lanes(self, world) -> None:
+        """Rank 0's host lane state on every rank of ``world`` (one
+        broadcast); a rank that was outside the mesh also re-shapes its
+        empty beam state to rank 0's lanes."""
+        fields = list(self._lane_fills())
+        mine = (dict(B=self.B, unharvested=list(self._unharvested),
+                     **{f: getattr(self, f) for f in fields})
+                if world.rank == 0 else None)
+        got = world.broadcast_object(mine, src=0)
+        if world.rank == 0:
+            return
+        self.B = int(got["B"])
+        self._unharvested = list(got["unharvested"])
+        for f in fields:
+            setattr(self, f, np.array(got[f]))
+        self.last_candidates = [None] * self.B
+        if self.resume == "beam" and not self.member:
+            st = self.beam_state
+            self.beam_state = _empty_state(0, st.visited.shape[-1], self.B,
+                                           st.capacity, st.ids.device)
+
+    def _lane_fills(self) -> dict:
+        """The per-lane host arrays (lane axis first) of the state machine,
+        each with the value of a free lane."""
+        return dict(qs=0, status=LANE_FREE, ks=1, epss=0, K=0,
+                    maxK=self.n_total, rounds=0, out_ids=-1, out_sc=0,
+                    cert=False, expansions=0, fresh=True)
 
     def _resize_lanes(self, B_new: int) -> None:
         """Pad (grow) or cut (shrink) every per-lane host array to
         ``B_new`` lanes, keeping the surviving prefix; the caller drops
         free tail lanes only."""
         B = self.B
-        fills = dict(qs=0, status=LANE_FREE, ks=1, epss=0, K=0,
-                     maxK=self.n_total, rounds=0, out_ids=-1, out_sc=0,
-                     cert=False, expansions=0, fresh=True)
-        for name, fill in fills.items():
+        for name, fill in self._lane_fills().items():
             a = getattr(self, name)
             out = np.full((B_new,) + a.shape[1:], fill, a.dtype)
             out[:min(B, B_new)] = a[:B_new]
@@ -487,6 +552,8 @@ class ShardedEngine:
         single-host engine's signature and ignored (no prefix-width
         stage)."""
         del widths
+        if not self.member:
+            return []      # no shard here: the mesh's ranks run the ladder
         if (self.status != LANE_FREE).any():
             raise RuntimeError("prewarm before admitting requests (prewarm "
                                "dispatches scribble on the lanes' result rows)")

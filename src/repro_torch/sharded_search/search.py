@@ -27,7 +27,13 @@ reference's butterfly (log2(P) rounds, each an ``exchange`` with rank
 ``me ^ stride`` and one two-run ``kops.topk_merge`` launch), and the
 all-gather merge and the expansion counts go through the group. The
 merged candidates, and everything after them, are replicated on every
-rank; ``all_vectors`` stays whole on each.
+rank; ``all_vectors`` stays whole on each. A rank outside the mesh (a
+sub-mesh of the group's first ranks) holds an index with no local shard
+(``local_shards`` 0) and takes part in none of its collectives. Such an
+index is built per rank (``build_sharded_index(shard=)``), resharded per
+rank from the host rows every rank keeps (``reshard_index(shard=)``), and
+the in-flight state migrates by one gather of the old mesh's blocks over
+the whole group (``migrate_sharded_state(old_mesh=)``).
 
 ``sharded_topk`` / ``sharded_diverse_search`` are the scratch half (one
 fixed budget, no state); ``ShardedSearchState`` with
@@ -139,12 +145,15 @@ def index_to_host(index: ShardedIndex) -> dict:
 def local_shard(host: dict, rank: int) -> dict:
     """Shard ``rank`` of a whole index's host dict (``index_to_host``): its
     per-shard leaves on a leading axis of one, the PQ codebooks (shared)
-    whole, and the global shard count, for the rank that serves it."""
+    whole, and the global shard count, for the rank that serves it.
+    ``rank`` -1 gives no shard (a leading axis of zero), for a rank outside
+    the mesh."""
     p = int(np.asarray(host["neighbors"]).shape[0])
-    if not 0 <= rank < p:
+    if not -1 <= rank < p:
         raise ValueError(f"no shard {rank} in an index of {p}")
+    at = slice(rank, rank + 1) if rank >= 0 else slice(0, 0)
     out = {f: (None if host.get(f) is None or f == "codebooks"
-               else np.asarray(host[f])[rank:rank + 1]) for f in _LEAVES}
+               else np.asarray(host[f])[at]) for f in _LEAVES}
     out["codebooks"] = host.get("codebooks")
     return dict(out, metric=host["metric"], scheme=host.get("scheme"),
                 scale_rows=int(host.get("scale_rows", 8)), total_shards=p)
@@ -210,12 +219,66 @@ def _shard_graph(chunk: np.ndarray, metric: str, M: int, builder: str,
     return build_knn_graph(chunk, metric=metric, M=M, device=dev)
 
 
+def _shards_built(num_shards: int, shard: int | None) -> list[int]:
+    """The shards a build keeps: all of them (``shard`` None), one, or
+    none (-1)."""
+    if shard is None:
+        return list(range(num_shards))
+    if not -1 <= shard < num_shards:
+        raise ValueError(f"no shard {shard} in an index of {num_shards}")
+    return [shard] if shard >= 0 else []
+
+
+def _assemble(x: np.ndarray, num_shards: int, keep: list[int], metric: str,
+              M: int, builder: str, scheme: str | None, scale_rows: int,
+              codes_of, codebooks, dev) -> ShardedIndex:
+    """The index of the shards ``keep`` over the float rows ``x`` (each
+    shard's graph built from its own rows; ``codes_of(s, rows)`` its
+    compressed rows), with the global shard count where it holds fewer
+    than all of them."""
+    n, d = x.shape
+    ns = n // num_shards
+    vecs, nbrs, entries, codes, scales = [], [], [], [], []
+    for s in keep:
+        chunk = x[s * ns:(s + 1) * ns]
+        g = _shard_graph(chunk, metric, M, builder, dev)
+        vecs.append(g.vectors)
+        nbrs.append(g.neighbors)
+        entries.append(int(g.entry))
+        if scheme is not None:
+            c, sc = codes_of(s, chunk)
+            codes.append(c)
+            scales.append(sc)
+    m0 = max([a.shape[1] for a in nbrs] or [2 * M])
+    nbrs = [torch.nn.functional.pad(a, (0, m0 - a.shape[1]), value=-1)
+            for a in nbrs]
+
+    def stack(parts, empty_shape, dtype):
+        return (torch.stack(parts).contiguous() if parts else
+                torch.zeros((0, *empty_shape), dtype=dtype, device=dev))
+
+    code_shape, code_dtype = ((ns, d), torch.int8) if scheme == "int8" else (
+        (ns, 0 if codebooks is None else codebooks.shape[0]), torch.uint8)
+    return ShardedIndex(
+        vectors=None if scheme else stack(vecs, (ns, d), torch.float32),
+        neighbors=stack(nbrs, (ns, m0), torch.int32),
+        entries=torch.tensor(entries, dtype=torch.int32, device=dev),
+        bases=torch.tensor(keep, dtype=torch.int32, device=dev) * ns,
+        codes=stack(codes, code_shape, code_dtype) if scheme else None,
+        scales=(stack(scales, (-(-ns // scale_rows),), torch.float32)
+                if scheme == "int8" else None),
+        codebooks=codebooks if scheme == "pq" else None,
+        metric=metric, scheme=scheme, scale_rows=int(scale_rows),
+        total_shards=0 if len(keep) == num_shards else num_shards)
+
+
 def build_sharded_index(vectors, num_shards: int, metric: str, M: int = 16,
                         builder: str = "knng", quantized: str | None = None,
                         scale_rows: int = 8, pq_m: int | None = None,
                         pq_codes: int = 256, pq_iters: int = 10,
                         pq_sample: int = 16384, seed: int = 0,
-                        device=None) -> ShardedIndex:
+                        device=None, shard: int | None = None
+                        ) -> ShardedIndex:
     """Partition the database into contiguous shards and build one graph
     per shard (``builder`` "knng" or "hnsw"; an HNSW shard keeps its level
     0 and entry), on ``device`` (``cuda`` unless given).
@@ -227,6 +290,13 @@ def build_sharded_index(vectors, num_shards: int, metric: str, M: int = 16,
     builder can differ from the reference's on exactly tied candidates
     (``index_from_host`` carries the reference's shards across instead);
     its HNSW builder gives the reference's graph bit for bit.
+
+    ``shard`` builds one rank's part only: shard ``shard`` on a leading
+    axis of one (-1: no shard, for a rank outside the mesh), equal bit for
+    bit to ``local_shard`` of the whole build. Every shard's graph is
+    built from its own rows, so a rank builds one graph, not P; PQ
+    codebooks are trained on the whole corpus on every rank (the same
+    seeded training), so each rank's codes are the whole build's.
     """
     _check_builder(builder)
     if quantized is not None and quantized not in quant.QUANT_SCHEMES:
@@ -238,63 +308,50 @@ def build_sharded_index(vectors, num_shards: int, metric: str, M: int = 16,
     ns = n // num_shards
     if ns * num_shards != n:
         raise ValueError("dataset must split evenly across shards")
+    keep = _shards_built(num_shards, shard)
     pq_global = None
     if quantized == "pq":
         if pq_m is None:
             pq_m = quant.default_pq_m(int(x.shape[-1]))
         pq_global = quant.train_pq(x, m=pq_m, codes=pq_codes, iters=pq_iters,
                                    seed=seed, sample=pq_sample, device=dev)
-    vecs, nbrs, entries, codes, scales = [], [], [], [], []
-    for s in range(num_shards):
-        chunk = x[s * ns:(s + 1) * ns]
-        g = _shard_graph(chunk, metric, M, builder, dev)
-        vecs.append(g.vectors)
-        nbrs.append(g.neighbors)
-        entries.append(int(g.entry))
+
+    def codes_of(s, chunk):
         if quantized == "int8":
             c = quant.quantize_int8(chunk, scale_rows=scale_rows, device=dev)
-            codes.append(c.codes)
-            scales.append(c.scales)
-        elif quantized == "pq":
-            codes.append(pq_global.codes[s * ns:(s + 1) * ns])
-    m0 = max(a.shape[1] for a in nbrs)
-    nbrs = [torch.nn.functional.pad(a, (0, m0 - a.shape[1]), value=-1)
-            for a in nbrs]
-    return ShardedIndex(
-        vectors=None if quantized else torch.stack(vecs),
-        neighbors=torch.stack(nbrs).contiguous(),
-        entries=torch.tensor(entries, dtype=torch.int32, device=dev),
-        bases=torch.arange(num_shards, dtype=torch.int32, device=dev) * ns,
-        codes=torch.stack(codes).contiguous() if quantized else None,
-        scales=(torch.stack(scales).contiguous() if quantized == "int8"
-                else None),
-        codebooks=pq_global.codebooks if quantized == "pq" else None,
-        metric=metric, scheme=quantized, scale_rows=int(scale_rows))
+            return c.codes, c.scales
+        return pq_global.codes[s * ns:(s + 1) * ns], None
+
+    return _assemble(x, num_shards, keep, metric, M, builder, quantized,
+                     scale_rows, codes_of,
+                     pq_global.codebooks if pq_global else None, dev)
 
 
 def reshard_index(index: ShardedIndex, num_shards: int, all_vectors=None, *,
-                  M: int | None = None,
-                  builder: str = "knng") -> ShardedIndex:
+                  M: int | None = None, builder: str = "knng",
+                  shard: int | None = None) -> ShardedIndex:
     """Repartition a ``ShardedIndex`` across a new power-of-two shard count,
     on the index's device.
 
     Shard ``s`` owns global rows ``[s * ns, (s + 1) * ns)``, so this is a
-    re-blocking of the stacked rows: global ids never move, int8 codes and
-    scales are re-blocked exactly (``scale_rows`` must divide both shard
-    sizes) and PQ codebooks are shared. Each new shard's graph is rebuilt
-    from its float rows with ``builder`` (which, like ``M``, must be the
-    original build's), so a round trip (4 -> 8 -> 4) gives back the
-    original index bit for bit.
+    re-blocking of the stacked rows: global ids never move. Each new
+    shard's graph is rebuilt from its float rows with ``builder`` (which,
+    like ``M``, must be the original build's), so a round trip (4 -> 8 ->
+    4) gives back the original index bit for bit. int8 codes are quantized
+    again block by block on the same ``scale_rows`` grid (which must divide
+    both shard sizes), giving the re-blocked codes and scales exactly; PQ
+    codes are encoded again with the shared codebooks over the whole
+    corpus, as the training encoded it.
 
-    ``all_vectors`` is the float corpus the caller keeps for a quantized
-    index (whose ``vectors`` is None). ``M`` defaults to half the stored
-    neighbour width (the builder's ``M0 = 2 * M``).
+    ``all_vectors`` is the float corpus, which the caller keeps for a
+    quantized index (whose ``vectors`` is None) and for a rank's part.
+    ``M`` defaults to half the stored neighbour width (the builder's
+    ``M0 = 2 * M``). ``shard`` keeps one part of the target (-1: none),
+    which a rank's part of an index over a process group (``total_shards``
+    set) must name: every rank keeps the host rows, so rows never cross
+    ranks, and the part equals ``local_shard`` of the whole index's
+    reshard bit for bit.
     """
-    if index.total_shards:
-        raise NotImplementedError(
-            "resharding a rank's shard of a process-group mesh moves rows "
-            "between ranks: ROADMAP queue 1 D.2 (elastic rescaling across "
-            "group sizes)")
     p_old, ns_old = index.num_shards, index.shard_size
     n = p_old * ns_old
     if num_shards & (num_shards - 1) or num_shards < 1:
@@ -303,6 +360,9 @@ def reshard_index(index: ShardedIndex, num_shards: int, all_vectors=None, *,
     if n % num_shards:
         raise ValueError(f"corpus of {n} rows does not split across "
                          f"{num_shards} shards")
+    if index.total_shards and shard is None:
+        raise ValueError("a rank's part of an index reshards into its part "
+                         "of the target: pass shard=")
     if num_shards == p_old:
         return index
     ns_new = n // num_shards
@@ -312,44 +372,49 @@ def reshard_index(index: ShardedIndex, num_shards: int, all_vectors=None, *,
             f"int8 scale blocks ({index.scale_rows} rows) must divide both "
             f"shard sizes ({ns_old} -> {ns_new}); rebuild instead of "
             "resharding")
-    if index.vectors is not None:
+    if index.vectors is not None and not index.total_shards:
         flat = index.vectors.reshape(n, -1).cpu().numpy()
     elif all_vectors is not None:
         flat = torch.as_tensor(all_vectors)[:n].cpu().numpy()
     else:
-        raise ValueError("resharding a quantized index needs the float "
-                         "corpus (all_vectors=)")
+        raise ValueError("resharding a quantized index, or a rank's part, "
+                         "needs the float corpus (all_vectors=)")
     _check_builder(builder)
     if M is None:
         M = index.neighbors.shape[-1] // 2
     dev = index.device
-    vecs, nbrs, entries = [], [], []
-    for s in range(num_shards):
-        g = _shard_graph(flat[s * ns_new:(s + 1) * ns_new], index.metric,
-                         M, builder, dev)
-        vecs.append(g.vectors)
-        nbrs.append(g.neighbors)
-        entries.append(int(g.entry))
-    m0 = max(a.shape[1] for a in nbrs)
-    nbrs = [torch.nn.functional.pad(a, (0, m0 - a.shape[1]), value=-1)
-            for a in nbrs]
-    codes = scales = None
-    if index.codes is not None:
-        rest = index.codes.shape[2:]
-        codes = index.codes.reshape(num_shards, ns_new, *rest).contiguous()
-    if index.scales is not None:
-        scales = index.scales.reshape(num_shards, -1).contiguous()
-    return ShardedIndex(
-        vectors=None if index.scheme else torch.stack(vecs),
-        neighbors=torch.stack(nbrs).contiguous(),
-        entries=torch.tensor(entries, dtype=torch.int32, device=dev),
-        bases=torch.arange(num_shards, dtype=torch.int32, device=dev) * ns_new,
-        codes=codes, scales=scales, codebooks=index.codebooks,
-        metric=index.metric, scheme=index.scheme,
-        scale_rows=index.scale_rows)
+    keep = _shards_built(num_shards, shard)
+    pq_codes = (quant.pq_encode(flat, index.codebooks)
+                if index.scheme == "pq" and keep else None)
+
+    def codes_of(s, chunk):
+        if index.scheme == "int8":
+            c = quant.quantize_int8(chunk, scale_rows=index.scale_rows,
+                                    device=dev)
+            return c.codes, c.scales
+        return pq_codes[s * ns_new:(s + 1) * ns_new], None
+
+    return _assemble(flat, num_shards, keep, index.metric, M, builder,
+                     index.scheme, index.scale_rows, codes_of,
+                     index.codebooks, dev)
 
 
 # ------------------------------------------------------ shard-local beams ----
+
+def spans_ranks(mesh) -> bool:
+    """Whether ``mesh`` is cut from a process group of more than one rank
+    (its shards, or the group it belongs to, lie in other processes)."""
+    world = getattr(mesh, "world", None)
+    return world is not None and world.size > 1
+
+
+def rank_shard(mesh) -> int | None:
+    """This rank's shard on ``mesh``: None when one process holds every
+    shard, the rank's coordinate over a process group, -1 outside it."""
+    if not spans_ranks(mesh):
+        return None
+    return mesh.rank if mesh.member else -1
+
 
 def _check_mesh(index: ShardedIndex, mesh, axis: str) -> None:
     if (axis not in mesh.axis_names or mesh.size != index.num_shards
@@ -550,7 +615,8 @@ def state_from_host(host: dict, device=None) -> ShardedSearchState:
 def migrate_sharded_state(state: ShardedSearchState, num_shards: int,
                           capacity: int | None = None, mesh=None,
                           axis: str = "data",
-                          num_lanes: int | None = None) -> ShardedSearchState:
+                          num_lanes: int | None = None,
+                          old_mesh=None) -> ShardedSearchState:
     """Re-bucket in-flight per-lane beam state onto a new shard layout, on
     the state's device.
 
@@ -567,12 +633,20 @@ def migrate_sharded_state(state: ShardedSearchState, num_shards: int,
 
     ``num_lanes`` resizes the lane axis: new lanes are empty (unseeded), a
     smaller count keeps lanes ``[:num_lanes]`` and drops the rest.
+
+    Over a process group (``mesh`` the target, ``old_mesh`` the source,
+    both cut from one group's first ranks) every rank of the group calls
+    it: the old mesh's blocks are gathered over the whole group with one
+    ``all_gather`` a leaf (a collective, not point to point: gloo aborts
+    on a CUDA tensor sent point to point), a rank outside the old mesh
+    sending zeros in its slot, then every rank runs the arithmetic above
+    on the whole state and keeps its block of the target (none outside
+    it). The bytes gathered are counted in the group mesh's
+    ``gathered_bytes``.
     """
-    if mesh is not None and mesh.local_size != mesh.size:
-        raise NotImplementedError(
-            "migrating beam state across a process group moves queue "
-            "entries between ranks: ROADMAP queue 1 D.2 (elastic rescaling "
-            "across group sizes)")
+    if spans_ranks(mesh):
+        return _migrate_across_ranks(state, num_shards, capacity, mesh, axis,
+                                     num_lanes, old_mesh)
     ids, scores, stable, visited, steps = state
     p_old, B, C_old = ids.shape
     ns_old = visited.shape[-1]
@@ -644,6 +718,32 @@ def migrate_sharded_state(state: ShardedSearchState, num_shards: int,
             out[:, :keep_b] = leaf[:, :keep_b]
         leaves = list(empty)
     return ShardedSearchState(*leaves)
+
+
+def _migrate_across_ranks(state: ShardedSearchState, num_shards: int,
+                          capacity, mesh, axis: str, num_lanes, old_mesh
+                          ) -> ShardedSearchState:
+    """``migrate_sharded_state`` over a process group: gather, migrate the
+    whole state, keep this rank's block."""
+    if old_mesh is None or old_mesh.world is not mesh.world:
+        raise ValueError("migrating across ranks needs the old mesh, cut "
+                         "from the target's group (old_mesh=)")
+    if axis not in mesh.axis_names or mesh.size != num_shards:
+        raise ValueError(f"{num_shards} shards on a mesh of {mesh.size} "
+                         f"along {mesh.axis_names}, axis {axis!r}")
+    world, p_old = mesh.world, old_mesh.size
+    whole = []
+    for leaf in state:
+        block = leaf if leaf.shape[0] else torch.zeros(
+            (1, *leaf.shape[1:]), dtype=leaf.dtype, device=leaf.device)
+        wire = block.to(torch.uint8) if block.dtype == torch.bool else block
+        got = world.all_gather(wire)[:p_old]
+        whole.append(got.to(torch.bool) if block.dtype == torch.bool
+                     else got)
+    new = migrate_sharded_state(ShardedSearchState(*whole), num_shards,
+                                capacity, None, axis, num_lanes)
+    at = (slice(mesh.rank, mesh.rank + 1) if mesh.member else slice(0, 0))
+    return ShardedSearchState(*(leaf[at].contiguous() for leaf in new))
 
 
 def _resume_beams(index: ShardedIndex, state: ShardedSearchState, qs,

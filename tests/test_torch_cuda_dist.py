@@ -149,3 +149,29 @@ def test_which_gloo_collectives_take_cuda_tensors(tmp_path):
             got = json.load(f)
         print(f"rank {r}: {got}")
         assert set(got) == {"all_reduce", "all_gather", "broadcast"}
+
+
+def test_facade_over_gloo_ranks_on_the_card_equals_local_mesh(tmp_path):
+    """``tests/test_torch_sharded_db.py``'s drivers over 4 gloo ranks
+    sharing the card (``rank_run``: the sharded facade's reads, float and
+    int8; writes and a swap; the engine-direct grow and shrink; the elastic
+    facade under a burst) equal the same drivers on a ``LocalMesh`` facade
+    on the card bit for bit; a background rebuild over the ranks holds the
+    validity gates with one swap on every rank."""
+    import pickle
+
+    import test_torch_sharded_db as t
+
+    R.spawn(R.sharded_db_rank, 4, str(tmp_path), "gloo", "cuda",
+            timeout=600)
+    ranks = []
+    for r in range(4):
+        with open(tmp_path / f"dbgloocuda_{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    local = t.local_run("cuda")
+    for part in t.RANK_PARTS:
+        want = local[part]
+        t._bit_equal(ranks[0][part], want, part)
+    assert {g["epoch"] for g in ranks[0]["background"]} == {0, 1}
+    for r in range(1, 4):
+        assert ranks[r]["background"] == dict(swaps=[1]), r

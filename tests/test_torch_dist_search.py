@@ -212,8 +212,10 @@ def test_scheduler_admits_mid_run(world):
 
 def test_rank_index_refuses_the_wrong_mesh(world):
     """A rank's shard on a LocalMesh of four (or a whole index on a process
-    group) is refused by the mesh check, and a rank's shard cannot be
-    resharded in process."""
+    group) is refused by the mesh check; resharded, a rank's shard becomes
+    its part of the target, built from the host rows: the whole index's
+    reshard, then ``local_shard`` (no part for a rank outside the target's
+    two ranks)."""
     ref, _, _ = world
     del ref
     rng = np.random.default_rng(1)
@@ -225,5 +227,10 @@ def test_rank_index_refuses_the_wrong_mesh(world):
     with pytest.raises(ValueError, match="1 here"):
         T.sharded_topk(one, x[:2], 4, 8, make_mesh((4,), ("data",),
                                                    device="cpu"))
-    with pytest.raises(NotImplementedError, match="D.2"):
-        T.reshard_index(one, 2, x)
+    want = T.index_to_host(T.reshard_index(whole, 2, x))
+    for shard in (0, 1, -1):
+        got = T.index_to_host(T.reshard_index(one, 2, x, shard=shard))
+        part = T.local_shard(want, shard)
+        assert got["total_shards"] == part["total_shards"] == 2
+        for f in ("vectors", "neighbors", "entries", "bases"):
+            np.testing.assert_array_equal(got[f], part[f], err_msg=f)

@@ -25,6 +25,17 @@ within 1e-5. The reference's own facade cannot take ``elastic=`` under
 Python 3.12 (its ``MutableBackend`` reaches the rescale members through
 ``__getattr__``), so the port's elastic facade is held to the port's
 bare-engine scheduler on the same indexes instead.
+
+The same drivers also run over a process group (``rank_run``): four gloo
+ranks (``tests/torch_dist_ranks.sharded_db_rank``), started with the
+reference's subprocesses, serve each facade one shard per rank (rank 0
+drives, the others follow inside their constructors, ``rank_pkg``); the
+engine-direct straddles run rank 0's engine under ``RankZeroBackend``.
+Every rank-0 result must equal the ``LocalMesh`` run's bit for bit (ids,
+score bits, certificates, ``K_final``, expansions, epochs, versions, scale
+events and the pumps they land at), and so the reference's. One more run
+rebuilds in the background over the ranks and is held to the validity
+gates, with exactly one swap on every rank.
 """
 import functools
 import os
@@ -68,9 +79,10 @@ def _res(r) -> dict:
                 rounds=int(r.stats.search_calls))
 
 
-def _pkg(name: str):
+def _pkg(name: str, device: str = "cpu"):
     """The names the drivers use, from ``repro`` or ``repro_torch`` (the
-    port's entry points told to run on the CPU)."""
+    port's entry points told to run on ``device``, the CPU unless
+    given)."""
     if name == "repro":
         import jax.numpy as jnp
 
@@ -92,10 +104,10 @@ def _pkg(name: str):
         from repro_torch.serve import scheduler
         from repro_torch.sharded_search import engine, search
 
-        make_mesh = functools.partial(compat.make_mesh, device="cpu")
+        make_mesh = functools.partial(compat.make_mesh, device=device)
         sds = search.sharded_diverse_search
-        dbcls = functools.partial(db.DiverseVectorDB, device="cpu")
-        recheck = functools.partial(theorem2_recheck, device="cpu")
+        dbcls = functools.partial(db.DiverseVectorDB, device=device)
+        recheck = functools.partial(theorem2_recheck, device=device)
     return types.SimpleNamespace(
         DiverseVectorDB=dbcls, Query=db.Query, make_mesh=make_mesh,
         LaneRequest=LaneRequest, recheck=recheck, sds=sds,
@@ -103,7 +115,9 @@ def _pkg(name: str):
         LaneScheduler=scheduler.LaneScheduler,
         ElasticPolicy=scheduler.ElasticPolicy,
         busy=(scheduler.SchedulerSaturated, scheduler.RequestDeferred),
-        build_sharded_index=search.build_sharded_index,
+        build_sharded_index=(search.build_sharded_index if name == "repro"
+                             else functools.partial(
+                                 search.build_sharded_index, device=device)),
         reshard_index=search.reshard_index)
 
 
@@ -127,14 +141,16 @@ def facade_reads(ns, quantized):
                                               for q in qs])]
 
 
-def mutable_straddle(ns):
+def mutable_straddle(ns, background=False):
     """Contract 15 on the 4-shard facade: every result valid against the
     corpus version it is tagged with, no deleted id served, every certified
-    frontier re-proved, results from epochs 0 and 1."""
+    frontier re-proved, results from epochs 0 and 1. With ``background``
+    the rebuild runs on a thread; the driver waits for it before the last
+    two requests, so they are served on the new epoch."""
     rng, x = _world(1024)
     db = ns.DiverseVectorDB(x, "ip", shards=4, num_lanes=3, max_k=8,
                             default_ef=12, M=8, delta_capacity=8,
-                            background_rebuild=False, prewarm=False)
+                            background_rebuild=background, prewarm=False)
     qs = (x[rng.integers(0, len(x), 10)]
           + 0.05 * rng.normal(size=(10, 16))).astype(np.float32)
     snaps, reqs, metas, fronts = {}, [], {}, {}
@@ -173,6 +189,8 @@ def mutable_straddle(ns):
     pump()
     db.upsert(rng.normal(size=(6, 16)).astype(np.float32))  # fills the delta
     snap()
+    if background:
+        db.index.wait_rebuild()
     assert db.index.swap_ready()
     for i in range(8, 10):
         submit(i)
@@ -287,6 +305,30 @@ def elastic_scheduler(ns, index2, index4, burst):
                 admitted_on_new=on_new, trace=trace)
 
 
+def elastic_facade(ns):
+    """The elastic facade (``shards="auto"``, 2 of 4 shards, the 4-shard
+    target prepared) under the burst, then idle pumps until a shrink.
+    Returns its record and the facade."""
+    _, x = _world(2048)
+    db = ns.DiverseVectorDB(x, "ip", shards="auto",
+                            elastic=ns.ElasticPolicy(**POLICY), num_lanes=2,
+                            max_k=8, M=8, prewarm=False,
+                            backend_kw=dict(K0=16, resume="beam"),
+                            scheduler_kw=dict(max_pending=32))
+    start = (db.backend.num_shards, db.backend.rescale_options())
+    burst = np.random.default_rng(1).normal(size=(24, 16)).astype(np.float32)
+    reqs, on_new, trace = _burst(db.scheduler, db.backend, burst, ns)
+    st = db.stats()
+    return dict(results=[_res(r.result) for r in reqs],
+                lanes=[r.lane for r in reqs], events=_scale_log(db.scheduler),
+                pumps=[e["pump"] for e in db.scheduler.scale_events],
+                admitted_on_new=on_new, trace=trace, start=start,
+                stats={k: st[k] for k in ("shards", "scale_events",
+                                          "completed", "certified_frac")},
+                lanes_after=(db.backend.num_lanes,
+                             len(db.backend.last_meta))), db
+
+
 def _reference_part(ns, part: str) -> dict:
     if part == "facade":
         return {f"facade_{q}": facade_reads(ns, q) for q in (None, "int8")}
@@ -311,6 +353,99 @@ def reference_run(path: str, part: str) -> None:
     outputs and the indexes the port carries across, pickled to ``path``."""
     with open(path, "wb") as f:
         pickle.dump(_reference_part(_pkg("repro"), part), f)
+
+
+# --------------------------------------------------- over the ranks ----
+
+class Followed(Exception):
+    """Raised on a rank other than 0 once rank 0 closed the facade or the
+    engine it was following."""
+
+
+def rank_pkg(world, device):
+    """The drivers' names over the process group of ``world`` (a
+    ``ProcessGroupMesh``): facades and engines serve one shard per rank;
+    on rank 0 they are returned (engines under ``RankZeroBackend``), on the
+    others the constructor follows rank 0 until it closes, then raises
+    ``Followed``. Returns the namespace and the list of what rank 0 opened
+    (closed by ``rank_run``); ``swaps`` collects each follower facade's
+    epoch swaps."""
+    from repro_torch import compat, db
+    from repro_torch.serve.scheduler import RankZeroBackend, follow
+    from repro_torch.sharded_search import engine, search
+
+    ns = _pkg("repro_torch", device)
+    opened, swaps = [], []
+
+    def facade(*a, **kw):
+        d = db.DiverseVectorDB(*a, mesh=world, device=device, **kw)
+        if world.rank:
+            swaps.append(d.backend.swaps)
+            raise Followed
+        opened.append(d)
+        return d
+
+    def sharded_engine(index, x, mesh, **kw):
+        eng = engine.ShardedEngine(index, x, mesh, **kw)
+        if world.rank:
+            follow(eng)
+            raise Followed
+        eng = RankZeroBackend(eng)
+        opened.append(eng)
+        return eng
+
+    def sds(index, x, qs, *a):
+        """The fixed-mesh run a straddle is held to, in process."""
+        mesh = compat.make_mesh((a[-1].size,), ("data",), device=device)
+        return search.sharded_diverse_search(index, x, qs, *a[:-1], mesh)
+
+    ns.DiverseVectorDB, ns.ShardedEngine, ns.sds = facade, sharded_engine, sds
+    ns.make_mesh = lambda shape, axes: world.sub(shape[0])
+    ns.swaps = swaps
+    return ns, opened
+
+
+#: what ``rank_run`` runs, by name: (driver, its arguments after ``ns``)
+def _rank_parts(ns):
+    _, x = _world(2048)
+    index2 = ns.build_sharded_index(x, 2, "ip", M=8)
+    index4 = ns.reshard_index(index2, 4)
+    return dict(
+        facade_None=(facade_reads, (None,)),
+        facade_int8=(facade_reads, ("int8",)),
+        facade_pq=(facade_reads, ("pq",)),
+        mutable_straddle=(mutable_straddle, ()),
+        grow=(engine_straddle, (index2, 2, index4, 4)),
+        shrink=(engine_straddle, (index4, 4, index2, 2)),
+        elastic_facade=(lambda ns: elastic_facade(ns)[0], ()),
+        background=(mutable_straddle, (True,)),
+        indexes=(lambda ns: dict(index2=_host(index2),
+                                 index4=_host(index4)), ()))
+
+
+def local_run(device) -> dict:
+    """The ``LocalMesh`` runs of ``_rank_parts`` on ``device``, in process
+    (what ``rank_run``'s rank 0 must equal)."""
+    ns = _pkg("repro_torch", device)
+    return {name: fn(ns, *args) for name, (fn, args) in
+            _rank_parts(ns).items() if name in RANK_PARTS}
+
+
+def rank_run(world, device) -> dict:
+    """Every driver of ``_rank_parts`` over the group: rank 0's outputs, or
+    on the other ranks the epoch swaps of each facade they followed."""
+    ns, opened = rank_pkg(world, device)
+    out = {}
+    for name, (fn, args) in _rank_parts(ns).items():
+        try:
+            out[name] = fn(ns, *args)
+        except Followed:
+            out[name] = dict(swaps=list(ns.swaps))
+        finally:
+            while opened:
+                opened.pop().close()
+            ns.swaps.clear()
+    return out
 
 
 # ------------------------------------------------------------ tests ----
@@ -352,9 +487,65 @@ def ref(reference):
     return out
 
 
+@pytest.fixture(scope="module", autouse=True)
+def rank_world(tmp_path_factory):
+    """Four gloo ranks running ``rank_run``, started with the reference's
+    subprocesses; killed when the module's tests end."""
+    import torch_dist_ranks as R
+
+    tmp = str(tmp_path_factory.mktemp("ranks"))
+    ctx = R.start(R.sharded_db_rank, 4, tmp)
+    yield ctx, tmp
+    R.kill(ctx)
+
+
+@pytest.fixture(scope="module")
+def ranks(rank_world):
+    """Each rank's ``rank_run`` output; a failing rank fails every test
+    that uses them."""
+    import torch_dist_ranks as R
+
+    ctx, tmp = rank_world
+    R.wait(ctx, timeout=600)
+    out = []
+    for r in range(4):
+        with open(os.path.join(tmp, f"dbgloocpu_{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
 @pytest.fixture(scope="module")
 def port():
     return _pkg("repro_torch")
+
+
+class _Runs(dict):
+    """The ``LocalMesh`` runs of the drivers, each made on first use."""
+
+    def __init__(self, make):
+        super().__init__()
+        self.make = make
+
+    def __missing__(self, name):
+        self[name] = self.make[name]()
+        return self[name]
+
+
+@pytest.fixture(scope="module")
+def local(port, ref):
+    def straddle(direction):
+        index2, index4 = _carry(ref["index2"]), _carry(ref["index4"])
+        args = ((index2, 2, index4, 4) if direction == "grow"
+                else (index4, 4, index2, 2))
+        return engine_straddle(port, *args)
+
+    return _Runs(dict(
+        facade_None=lambda: facade_reads(port, None),
+        facade_int8=lambda: facade_reads(port, "int8"),
+        facade_pq=lambda: facade_reads(port, "pq"),
+        mutable_straddle=lambda: mutable_straddle(port),
+        grow=lambda: straddle("grow"), shrink=lambda: straddle("shrink"),
+        elastic_facade=lambda: elastic_facade(port)))
 
 
 def _carry(host):
@@ -371,8 +562,8 @@ def _same(got: dict, want: dict, what: str, keys=("ids", "certified",
 
 
 @pytest.mark.parametrize("quantized", [None, "int8"])
-def test_sharded_facade_matches_reference(ref, port, quantized):
-    got = facade_reads(port, quantized)
+def test_sharded_facade_matches_reference(ref, local, quantized):
+    got = local[f"facade_{quantized}"]
     want = ref[f"facade_{quantized}"]
     assert len(got) == len(want) == 8
     for i, (g, w) in enumerate(zip(got, want)):
@@ -380,8 +571,8 @@ def test_sharded_facade_matches_reference(ref, port, quantized):
     assert any(g["certified"] for g in got)
 
 
-def test_mutable_straddle_matches_reference(ref, port):
-    got, want = mutable_straddle(port), ref["mutable_straddle"]
+def test_mutable_straddle_matches_reference(ref, local):
+    got, want = local["mutable_straddle"], ref["mutable_straddle"]
     assert len(got) == len(want) == 10
     for i, (g, w) in enumerate(zip(got, want)):
         _same(g, w, f"request {i}", keys=("ids", "certified", "K_final",
@@ -389,11 +580,8 @@ def test_mutable_straddle_matches_reference(ref, port):
 
 
 @pytest.mark.parametrize("direction", ["grow", "shrink"])
-def test_engine_straddle_matches_reference(ref, port, direction):
-    index2, index4 = _carry(ref["index2"]), _carry(ref["index4"])
-    args = ((index2, 2, index4, 4) if direction == "grow"
-            else (index4, 4, index2, 2))
-    got, want = engine_straddle(port, *args), ref[direction]
+def test_engine_straddle_matches_reference(ref, local, direction):
+    got, want = local[direction], ref[direction]
     assert got["straddled"] == want["straddled"]
     assert len(got["straddled"]) >= 2
     assert got["violations"] == want["violations"] == 0
@@ -421,37 +609,123 @@ def test_elastic_scheduler_matches_reference(ref, port):
         assert g["certified"]
 
 
-def test_elastic_facade_equals_bare_engine_scheduler(port):
+def test_elastic_facade_equals_bare_engine_scheduler(port, local):
     """The port's elastic facade, with no write, serves a burst exactly as
     a bare-engine ``LaneScheduler(elastic=)`` over the facade's own 2- and
     4-shard indexes: the same results, scale events and lanes."""
     from repro_torch.core.backend import RescalableBackend
-    from repro_torch.db import DiverseVectorDB
 
-    _, x = _world(2048)
-    db = DiverseVectorDB(x, "ip", shards="auto",
-                         elastic=port.ElasticPolicy(**POLICY), num_lanes=2,
-                         max_k=8, M=8, prewarm=False, device="cpu",
-                         backend_kw=dict(K0=16, resume="beam"),
-                         scheduler_kw=dict(max_pending=32))
+    got, db = local["elastic_facade"]
     assert isinstance(db.backend, RescalableBackend)
-    assert db.backend.num_shards == 2
-    assert db.backend.rescale_options() == (2, 4)
+    assert got["start"] == (2, (2, 4))
+    # the burst ended on 2 shards: the 4-shard index is the target again
+    assert db.engine.num_shards == 2
     index4 = db.engine._rescale_targets[4][1]
     burst = np.random.default_rng(1).normal(size=(24, 16)).astype(np.float32)
     bare = elastic_scheduler(port, db.index.sharded, index4, burst)
-    reqs, on_new, trace = _burst(db.scheduler, db.backend, burst, port)
-    assert on_new and trace == bare["trace"]
-    assert _scale_log(db.scheduler) == bare["events"]
-    assert [r.lane for r in reqs] == bare["lanes"]
-    for i, (r, b) in enumerate(zip(reqs, bare["results"])):
-        g = _res(r.result)
+    assert got["admitted_on_new"] and got["trace"] == bare["trace"]
+    assert got["events"] == bare["events"]
+    assert got["lanes"] == bare["lanes"]
+    for i, (g, b) in enumerate(zip(got["results"], bare["results"])):
         for key in ("ids", "scores", "certified", "K_final", "expansions"):
             assert np.array_equal(g[key], b[key]), (i, key)
-    st = db.stats()
-    assert st["shards"] == 2 and st["scale_events"] == 2
-    assert st["completed"] == 24 and st["certified_frac"] == 1.0
-    assert db.backend.num_lanes == 2 and len(db.backend.last_meta) == 2
+    assert got["stats"] == dict(shards=2, scale_events=2, completed=24,
+                                certified_frac=1.0)
+    assert got["lanes_after"] == (2, 2)
+
+
+def _bit_equal(got, want, path=""):
+    """Equal leaf by leaf, float32 on its bits."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), (path, set(got) ^ set(want))
+        for k in want:
+            _bit_equal(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _bit_equal(g, w, f"{path}[{i}]")
+    else:
+        g, w = np.asarray(got), np.asarray(want)
+        if w.dtype == np.float32:
+            g, w = g.view(np.uint32), w.view(np.uint32)
+        assert g.shape == w.shape and np.array_equal(g, w), (path, got, want)
+
+
+#: the drivers run over the ranks, each held to its LocalMesh run; the
+#: reference's parts cover all but the PQ reads and the elastic facade
+#: (which its facade cannot serve under Python 3.12)
+RANK_PARTS = ["facade_None", "facade_int8", "facade_pq", "mutable_straddle",
+              "grow", "shrink", "elastic_facade"]
+REFERENCE_PARTS = ["facade_None", "facade_int8", "mutable_straddle", "grow",
+                   "shrink"]
+
+
+@pytest.mark.parametrize("part", RANK_PARTS)
+def test_facade_over_ranks_bit_equal_to_local_mesh(ranks, local, part):
+    """Rank 0's outputs over four gloo ranks are the ``LocalMesh`` run's
+    bit for bit; the followers followed every facade of the part."""
+    want = local[part]
+    if part == "elastic_facade":
+        want = want[0]
+    _bit_equal(ranks[0][part], want, part)
+    if part not in ("grow", "shrink"):
+        for r in range(1, 4):
+            assert ranks[r][part] == dict(swaps=[int(
+                part == "mutable_straddle")]), (r, ranks[r][part])
+
+
+@pytest.mark.parametrize("part", REFERENCE_PARTS)
+def test_facade_over_ranks_matches_reference(ranks, ref, part):
+    """The ranks' results are the reference's: ids, certificates,
+    ``K_final``, epochs and versions equal, scores within 1e-5 (the
+    engine straddles run on the ranks' own indexes, which are the
+    reference's bit for bit)."""
+    for f in ("index2", "index4"):
+        _bit_equal({k: ranks[0]["indexes"][f][k]
+                    for k in ("vectors", "neighbors", "entries", "bases")},
+                   {k: ref[f][k] for k in ("vectors", "neighbors",
+                                           "entries", "bases")}, f)
+    got, want = ranks[0][part], ref[part]
+    if part in ("grow", "shrink"):
+        assert got["straddled"] == want["straddled"]
+        assert got["violations"] == want["violations"] == 0
+        assert got["fixed"] == want["fixed"]
+        for sub in ("first", "results"):
+            assert sorted(got[sub]) == sorted(want[sub])
+            for lane in want[sub]:
+                _same(got[sub][lane], want[sub][lane], f"{sub} {lane}",
+                      keys=("ids", "certified", "K_final", "expansions",
+                            "rounds"))
+        return
+    keys = (("ids", "certified", "K_final", "epoch", "version")
+            if part == "mutable_straddle" else ("ids", "certified",
+                                                "K_final"))
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _same(g, w, f"{part} {i}", keys=keys)
+
+
+def test_elastic_facade_over_ranks_scales(ranks):
+    """Over the ranks the elastic facade starts on 2 of 4 ranks, grows,
+    admits on the new mesh, certifies every request and shrinks back."""
+    got = ranks[0]["elastic_facade"]
+    assert got["start"] == (2, (2, 4))
+    assert any(t > f for f, t, _, _ in got["events"])
+    assert any(t < f for f, t, _, _ in got["events"])
+    assert got["admitted_on_new"] and len(got["pumps"]) == 2
+    assert all(r["certified"] for r in got["results"])
+
+
+def test_background_rebuild_over_ranks(ranks):
+    """A background rebuild over the ranks: the driver's validity gates
+    held on rank 0 (each result valid at its tag, no deleted id served,
+    every certified frontier re-proved, epochs 0 and 1, one swap there),
+    and exactly one swap on every other rank."""
+    got = ranks[0]["background"]
+    assert len(got) == 10
+    assert {g["epoch"] for g in got} == {0, 1}
+    for r in range(1, 4):
+        assert ranks[r]["background"] == dict(swaps=[1]), r
 
 
 def test_rescale_while_rebuild_pending_reshards_the_epoch(port):

@@ -25,18 +25,35 @@ GROUP_TIMEOUT_S = 60
 def spawn(fn, world: int, *args, timeout: float = 240.0) -> None:
     """Run ``fn(rank, world, *args)`` on ``world`` spawned ranks; raise if
     one raises or they are not done within ``timeout`` seconds."""
+    wait(start(fn, world, *args), timeout)
+
+
+def start(fn, world: int, *args):
+    """Start ``fn(rank, world, *args)`` on ``world`` spawned ranks; returns
+    the context :func:`wait` takes."""
     import torch.multiprocessing as mp
 
     ctx = mp.start_processes(fn, args=(world,) + args, nprocs=world,
                              join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
+    ctx.started = time.monotonic()
+    ctx.what = f"{fn.__name__} on {world} ranks"
+    return ctx
+
+
+def wait(ctx, timeout: float = 240.0) -> None:
+    """Wait for the ranks of :func:`start`; raise if one raises or they are
+    not done within ``timeout`` seconds of their start."""
+    deadline = ctx.started + timeout
     while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
         if time.monotonic() >= deadline:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-            raise TimeoutError(f"{fn.__name__} on {world} ranks: not done "
-                               f"in {timeout} s")
+            kill(ctx)
+            raise TimeoutError(f"{ctx.what}: not done in {timeout} s")
+
+
+def kill(ctx) -> None:
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
 
 
 def process_mesh(rank: int, world: int, tmp: str, tag: str, shape=None,
@@ -318,6 +335,24 @@ def search_rank(rank: int, world: int, tmp: str, backend: str = "gloo",
     done()
 
 
+def sharded_db_rank(rank: int, world: int, tmp: str, backend: str = "gloo",
+                    device: str = "cpu") -> None:
+    """``tests/test_torch_sharded_db.py``'s drivers on facades and engines
+    over the group (``rank_run`` there): rank 0 drives, the others follow.
+    Writes ``<tmp>/db<backend><device>_<rank>.pkl``."""
+    import pickle
+
+    dev = rank_device(rank, world, backend, device)
+    tag = f"db{backend}{device}"
+    mesh = process_mesh(rank, world, tmp, tag, backend=backend, device=dev)
+    import test_torch_sharded_db as t      # JAX-free at import
+
+    out = t.rank_run(mesh, dev)
+    with open(os.path.join(tmp, f"{tag}_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    done()
+
+
 # ------------------------------------------------------------- train ----
 def train_rank(rank: int, world: int, tmp: str) -> None:
     """One data-parallel train step of the reduced qwen2 on a ``(world,
@@ -480,4 +515,67 @@ def gloo_cuda_probe_rank(rank: int, world: int, tmp: str) -> None:
         with open(os.path.join(tmp, f"probe_{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.barrier()
+    done()
+
+
+# ------------------------------------------------------------- serve ----
+#: the launcher's arguments in ``tests/test_torch_dist_serve.py``
+SERVE_ARGS = ["--corpus", "1000", "--requests", "4", "--steps", "4",
+              "--device", "cpu"]
+SERVE_MODES = {"mesh": ["--mesh-shards", "4"], "elastic": ["--elastic"]}
+
+
+def recorded_pipeline(launcher, into: dict):
+    """Make ``launcher.RagPipeline`` keep what ``generate`` returns in
+    ``into`` (tokens, ids, certified)."""
+    real = launcher.RagPipeline
+
+    class Recording(real):
+        def generate(self, *a, **kw):
+            out = super().generate(*a, **kw)
+            into.update(tokens=out[0], ids=out[1], certified=out[2])
+            return out
+
+    launcher.RagPipeline = Recording
+    return real
+
+
+def serve_rank(rank: int, world: int, tmp: str) -> None:
+    """``launch.serve.main`` under torchrun's variables, with each of
+    :data:`SERVE_MODES` (rank 0 records its retrieval and tokens), then
+    ``compat.device_count()`` and a ``shards="auto"`` facade inside a
+    default group of the ranks."""
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    from repro_torch import compat
+    from repro_torch.launch import serve as launcher
+
+    rec: dict = {}
+    recorded_pipeline(launcher, rec)
+    out = {}
+    for mode, flags in SERVE_MODES.items():
+        rec.clear()
+        out[f"{mode}_rc"] = launcher.main(
+            SERVE_ARGS + flags + ["--backend", "gloo", "--init-method",
+                                  "file://" + os.path.join(
+                                      tmp, f"serve{mode}.store")])
+        for k, v in rec.items():
+            out[f"{mode}_{k}"] = v
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        del os.environ[k]
+    out["outside"] = compat.device_count()
+    process_mesh(rank, world, tmp, "auto")
+    out["inside"] = compat.device_count()
+    from repro_torch.db import DiverseVectorDB
+
+    x = np.random.default_rng(0).normal(size=(512, 16)).astype(np.float32)
+    db = DiverseVectorDB(x, "ip", shards="auto", num_lanes=2, max_k=8, M=8,
+                         prewarm=False, device="cpu")
+    if rank == 0:
+        res = db.search(x[3], k=5, eps=4.0)
+        out.update(auto_shards=db.backend.num_shards, auto_world=db.world.size,
+                   auto_ids=res.ids, auto_scores=res.scores)
+        db.close()
+    save(tmp, "serve", rank, **out)
     done()

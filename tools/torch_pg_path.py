@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s phase 14 (the process-group mesh: the sharded
 search over gloo ranks sharing the card, data-parallel training of
-qwen2-1.5b at full width, NCCL at world size 1) alone on one CUDA card.
+qwen2-1.5b at full width, NCCL at world size 1), or with ``--phase15`` its
+phase 15 (the facade over a process group: writes, an epoch swap, elastic
+rescaling and the serve launcher under torchrun, over gloo ranks sharing
+the card), alone on one CUDA card.
 
 Run from the root of a checkout, on a machine with a card:
 
-    python3 tools/torch_pg_path.py [--n 1000000] [--seed 0]
+    python3 tools/torch_pg_path.py [--n 1000000] [--seed 0] [--phase15]
 
-It makes phase 4's corpus, queries and eps, builds phase 6's index of 4
-shards on the card (``build_sharded_index``, as phase 6's facade does) and
-serves the 64 queries on a 16-lane ``ShardedEngine`` over a ``LocalMesh``
-(phase 6 (d)), then runs phase 14 against them. Every gate of the phase
-runs. Writes everything to chiprun_out/pg_path.json; the last line is
-``OK``.
+It makes phase 4's corpus, queries and eps. For phase 14 it builds phase
+6's index of 4 shards on the card (``build_sharded_index``, as phase 6's
+facade does) and serves the 64 queries on a 16-lane ``ShardedEngine`` over
+a ``LocalMesh`` (phase 6 (d)), then runs phase 14 against them; phase 15
+takes the corpus's first ``EL_ROWS`` rows. Every gate of the phase runs.
+Writes everything to chiprun_out/pg_path.json; the last line is ``OK``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,9 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--n", type=int, default=1_000_000)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--phase15", action="store_true",
+                   help="run phase 15 (the facade over a process group) "
+                        "instead of phase 14")
     args = p.parse_args()
 
     import torch
@@ -54,6 +60,21 @@ def main() -> int:
     del allx
     eps = cs.calibrate_eps(torch, sim, x, args.seed + 1, device)
     report: dict = {}
+    if args.phase15:
+        rows = x[:cs.EL_ROWS].cpu().numpy()
+        del x
+        torch.cuda.empty_cache()
+        try:
+            t = time.perf_counter()
+            launches = cs.facade_pg_path(torch, report, rows, qs_np, eps,
+                                         args.seed, device)
+            print(f"phase 15 s {time.perf_counter() - t}", flush=True)
+            print(json.dumps(launches), flush=True)
+        finally:
+            with open(os.path.join(cs.OUT, "pg_path.json"), "w") as f:
+                json.dump(report, f, indent=1, default=str)
+        print("OK")
+        return 0
     t = time.perf_counter()
     index = ss.build_sharded_index(x.cpu().numpy(), cs.SHARDS, "l2",
                                    M=cs.M_GRAPH, device=device)
