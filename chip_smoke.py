@@ -36,7 +36,8 @@ Phases:
    recycle), as the serving front door drives it. Every result must satisfy
    the diversity condition. The lockstep entry point ``batch_pss`` then
    serves the first 16 queries again on the kernels (and once more under
-   ``torch.profiler``) and the first 8 on the plain versions: both must
+   ``torch.profiler``) and the first ``RERUN`` = 4 on the plain versions
+   (cut from 8, listed under ``reduced``): both must
    give the same ids and certificates as the engine.
 5. The compressed-corpus path on phase 4's corpus, graph and first 16
    queries: the corpus quantized to int8 (8 rows per scale) and to PQ
@@ -84,7 +85,7 @@ Phases:
    L_factor = 4, 8 rounds, k = 10) serves the held-out queries with
    continuous admission. Every result must satisfy the diversity
    condition; every lane finished in its first round must equal
-   ``sharded_diverse_search`` at its K_final; the first 8 queries rerun
+   ``sharded_diverse_search`` at its K_final; the first ``RERUN`` queries rerun
    through ``sharded_progressive_diverse`` on the plain versions must give
    the same ids and certificates.
 
@@ -148,10 +149,11 @@ Phases:
 9. The paper's per-query API on phase 4's graph, eps and queries; it
    builds nothing. (a) ``diverse_search(graph, q, k=10, eps, method=m,
    ef=40)`` for m in pss, pgs, pds (PDS with ``max_K = PDS_MAX_K`` = 256,
-   cut from benchmarks/table2.py's 1 024) over the first ``Q9`` = 4
+   cut from benchmarks/table2.py's 1 024) over the first ``Q9`` = 2
    queries, PDS over the first ``PDS_QUERIES`` = 1 (both cut from 8; the
-   three cuts listed under ``reduced``: at 8 phase 9 took 626 s, and at
-   max_K = 1 024 its PDS query and check ~180 s of a 1 501 s script), one
+   three cuts listed under ``reduced``: at 8 phase 9 took 626 s, at
+   max_K = 1 024 its PDS query and check ~180 s of a 1 501 s script, and
+   at 4 queries 45.5 s of a script a slower host took past its limit), one
    at a time: each pss result must equal
    phase 4's served one (ids, score bits, certificate, exhausted, K_final,
    growths), each pgs result the lane of ``batch_pgs`` over the same
@@ -175,10 +177,12 @@ Phases:
    oracle's X), and timed there beside their bounds (``path9_shapes`` in
    their rows).
 
-10. The paper's index (HNSW) on the first ``N10`` = 5 000 rows of phase
-   4's corpus (half of benchmarks/datasets.py's N_DEFAULT; listed under
-   ``reduced``: the builder is host code, one insert at a time, and at
-   20 000 rows the script passed its time limit) and phase 4's queries,
+10. The paper's index (HNSW) on the first ``N10`` = 1 000 rows of phase
+   4's corpus (a twentieth of benchmarks/datasets.py's N_DEFAULT; listed
+   under ``reduced``: the builder is host code, one insert at a time, a
+   query expands nearly every row at this eps, and at 20 000 rows, and at
+   5 000 on a slower host, the script passed its time limit) and phase
+   4's queries,
    eps calibrated on those rows as phase 4's. The query counts of (c) and
    (d) are cuts too (listed under ``reduced``: at 64 / 4 / 4 the script
    took 1 386.8 s; at 16 / 2 / 2 about 1 122 s before phase 11). (a)
@@ -200,7 +204,7 @@ Phases:
    the oracle, K_final, certified share; each per-query pss equal to its
    graph's engine-served result (ids, score bits, certificate, exhausted,
    K_final, growths). (e) On the
-   first ``FD10_ROWS`` = 1 024 rows, eps calibrated on them:
+   first ``FD10_ROWS`` = 512 rows, eps calibrated on them:
    ``DiverseVectorDB(builder="hnsw")`` at its defaults (M = 16,
    ef_construction 200) serves 16 queries bit-equal to a bare engine over
    its graph, takes 8 upserts and 8 deletes of served ids, and rebuilds in
@@ -306,7 +310,9 @@ Phases:
    / p99 (rank 0's ``latency_stats``), each rank's launches by name, its
    seconds inside collectives and the bytes its exchanges staged through
    host memory (gloo's point-to-point ops do not take CUDA tensors). (b) ``DP_RANKS`` gloo ranks on the card train qwen2-1.5b at
-   full width and depth data parallel (``build_train_step`` on a
+   full width and ``DP_LAYERS`` = 4 of its 28 layers (a depth cut listed
+   under ``reduced``; phase 16 (b) trains all 28) data parallel
+   (``build_train_step`` on a
    ``(2, 1)`` mesh: each rank's rows of the global B = 16, S = 64 batch,
    the loss over the global label count, the gradients summed in float32)
    for 3 steps under deterministic algorithms; then rank 0 runs one
@@ -364,6 +370,41 @@ Phases:
    share the card): rc 0, and rank 0's certificates and retrieved ids
    equal to the same flags' run in this process, made meanwhile.
 
+16. Tensor parallelism on a ``model`` axis and data-parallel MoE (run
+   after phase 15). Before the ranks start, one process on the card runs
+   each part's shapes and writes its outputs to a temporary directory (its
+   first gradients, moonshot's routes and dropped pairs too), and frees the
+   card. Then ``TP_RANKS`` gloo ranks are spawned once on the card (NCCL
+   refuses two ranks on one GPU); the 2-rank meshes are the first two
+   ranks' (``ProcessGroupMesh.sub``). Each rank draws the whole model from
+   the one process's seed and keeps its slices (``models.model.
+   init_params(..., mesh)``). (a) qwen2-1.5b at full width and depth: 16
+   prompts of 8 tokens through ``build_prefill_step``, then 8 decode steps
+   at B = 16 through ``build_serve_step``, on (1, 2) (the 2 kv heads split)
+   and (1, 4) (they are replicated; each q head reads the kv head of its
+   global index). Gate: the prefill and decode logits within ``TP16_ULPS``
+   bf16 ulps of one process's largest |logit|. (b) qwen2-1.5b trained on
+   (2, 2), 3 steps of B = 16, S = 64: phase 14 (b)'s gate against one
+   process over the whole batch (each loss within ``DP_WHOLE_LOSS_RTOL``,
+   the first step's gradients, each rank's slices against the same slices,
+   within ``TRAIN_GRAD_ULPS`` bf16 ulps of the whole leaf's largest
+   |entry|), both under deterministic algorithms, so the gaps repeat from
+   run to run. (c) moonshot-v1-16b-a3b at full width (d_model 2 048, 64
+   experts, top-6, vocab 163 840) with 2 of its 48 layers (listed under
+   ``reduced``): a train step on (2, 1) (the data-parallel MoE: the sort
+   dispatch's capacity and places over the whole batch, the load-balance
+   term's share a rank) and on (1, 2) (expert parallel), and 8 decode
+   steps on (1, 2), the routes replayed from one process's (route flips
+   are counted, not gated). Gates: every route call's dropped pairs equal
+   to one process's (summed over the data ranks), the loss within
+   ``DP_WHOLE_LOSS_RTOL``, the logits and gradients within ``TP16_ULPS`` /
+   ``TRAIN_GRAD_ULPS`` bf16 ulps. Printed for each part and rank: the
+   wall, ms a step, the share of a step inside collectives, device
+   activities a step (rank 0's last step of each part, profiled in place),
+   peak allocated GB, and the reckoned peaks before the first run. The ranks sharing one card measure the port's
+   code path through gloo, not NCCL's bandwidth across cards. No kernel of
+   ``kernels/csrc`` is on the path: its ranks count 0 launches of each.
+
 Each phase's wall is logged on a line of its own and kept under
 ``phase_walls_s`` in chiprun_out/chip_smoke.json, beside the script's.
 
@@ -406,8 +447,11 @@ PEAK_INT8_OP_S = 1979e12     # H100 SXM int8 tensor cores, dense
 RTOL = ATOL = 1e-5
 FRESH_IDS = 256   # pregenerated id sets: one per timed gathered launch
 # the main path's configuration; only the data seed, the corpus size (the
-# stated cut, if one is needed) and the query count are arguments
-D, M_GRAPH, LANES, K, EF, PHI, RERUN = 96, 16, 16, 10, 40, 100.0, 8
+# stated cut, if one is needed) and the query count are arguments. RERUN
+# queries of phases 4 and 6 are rerun on the plain versions (cut from 8,
+# listed under ``reduced``: phase 4's rerun of 8 took 23.5 s of a 1 087 s
+# script, NVIDIA H100 80GB HBM3, 700 W)
+D, M_GRAPH, LANES, K, EF, PHI, RERUN = 96, 16, 16, 10, 40, 100.0, 4
 # phase 5: the compressed-corpus path (benchmarks/batch_bench.py
 # run_quantized's shape: a 4k prefilter, recall floor 0.95)
 SCALE_ROWS, PQ_ITERS, PREFILTER, KS, BEAM_L, RERUN_Q = 8, 10, 4, (5, 10), 40, 4
@@ -458,8 +502,10 @@ PATH8_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
 # at this eps stabilises up to max_K * ef = 40 960 candidates for a query
 # it then flags N/A (7 of 8), and ~200 s its batch_pds check. PDS_MAX_K is
 # cut too, from table2.py's TABLE2_MAX_K: at 1 024 the one PDS query took
-# 83.0 s and its batch_pds check ~100 s of a 1 501 s script
-Q9, PDS_QUERIES = 4, 1
+# 83.0 s and its batch_pds check ~100 s of a 1 501 s script. At 4 queries
+# phase 9 took 45.5 s of a 1 087.3 s script, which a slower host took past
+# its 1 200 s limit (NVIDIA H100 80GB HBM3, 700 W)
+Q9, PDS_QUERIES = 2, 1
 TABLE2_MAX_K, PDS_MAX_K = 1024, 256
 ORACLE_X, GREEDY_L, IPG_LAM = 1024, 400, 0.7
 BATCH_Q, BATCH_L, BATCH_K, BATCH_EF = 16, 256, 128, 4
@@ -468,10 +514,12 @@ PATH9_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
                  "pairwise_adjacency", "greedy_diversify")
 # phase 10: the paper's index (benchmarks/datasets.py load_graph's builder
 # and settings, M = 12, ef_construction = 80) over the first N10 rows of
-# phase 4's corpus, a quarter of the benchmarks' N_DEFAULT (datasets.py:29;
+# phase 4's corpus, a twentieth of the benchmarks' N_DEFAULT (datasets.py:29;
 # the cut is listed under ``reduced``: at 20 000 rows the script took
-# 1 260.5 s, and at 10 000 phase 10 took 395-419 s of a 1 011.4 s script
-# before phase 14 was added);
+# 1 260.5 s, at 10 000 phase 10 took 395-419 s of a 1 011.4 s script
+# before phase 14 was added, and at 5 000 273.7 s of a 1 087.3 s script,
+# which a slower host took past its 1 200 s limit; a query's expansions
+# and the engines' time grow with the rows, ~4 860 of 5 000);
 # each graph's engine serves the first SERVED10 queries and reruns RERUN10
 # on the plain versions, the per-query API runs on the first Q10 (cuts
 # listed under ``reduced``: at 64 / 4 / 4 the script took 1 386.8 s, and
@@ -481,9 +529,10 @@ PATH9_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
 # (builder="hnsw" at its defaults, M = 16, ef_construction = 200), its
 # writes and background rebuild (reads served while it runs, at most
 # FD10_MAX_ROUNDS batches), and the sharded path on the first FD10_ROWS rows
-N10, M10, EFC10 = 5_000, 12, 80
+# (cut from 1 024, where the facade's part took 54 s)
+N10, M10, EFC10 = 1_000, 12, 80
 SERVED10, RERUN10, Q10 = 16, 1, 1
-FD10_ROWS, FD10_SHARDS, FD10_WRITES, FD10_QUERIES = 1_024, 4, 8, 16
+FD10_ROWS, FD10_SHARDS, FD10_WRITES, FD10_QUERIES = 512, 4, 8, 16
 FD10_MAX_ROUNDS = 64
 PATH10_KERNELS = ("batch_similarity_many", "batch_similarity_gather",
                   "pairwise_adjacency", "fused_round", "topk_merge")
@@ -567,13 +616,16 @@ PEAK_BF16_FLOP_S = 989e12    # H100 SXM bf16 tensor cores, dense
 # phase 14: the process-group mesh (run after phase 8, on phase 6's index,
 # queries, eps and served results). (a) SHARDS gloo ranks sharing the card,
 # one shard each; (b) DP_RANKS gloo ranks training TRAIN_ARCH at full width
-# and depth data parallel, TRAIN_B x TRAIN_S global batches, DP_STEPS
-# steps, against one process's steps on the same batches (bit for bit over
-# the ranks' row blocks; phase 13 (c)'s gradient tolerance over the whole
-# batch); (c) NCCL at world size 1 against gloo. Every rank joins its
-# group through a file store with a PG_TIMEOUT_S timeout, and the parent
-# kills ranks not done by then
-DP_RANKS, DP_STEPS, PG_TIMEOUT_S = 2, 3, 600
+# and DP_LAYERS of its 28 layers data parallel, TRAIN_B x TRAIN_S global
+# batches, DP_STEPS steps, against one process's steps on the same batches
+# (bit for bit over the ranks' row blocks; phase 13 (c)'s gradient
+# tolerance over the whole batch); (c) NCCL at world size 1 against gloo.
+# Every rank joins its group through a file store with a PG_TIMEOUT_S
+# timeout, and the parent kills ranks not done by then. DP_LAYERS is a
+# depth cut (listed under ``reduced``): at all 28 layers (b) took 74 s of a
+# 1 087.3 s script (NVIDIA H100 80GB HBM3, 700 W), which a slower host
+# took past its 1 200 s limit; phase 16 (b) trains all 28 on a (2, 2) mesh
+DP_RANKS, DP_STEPS, DP_LAYERS, PG_TIMEOUT_S = 2, 3, 4, 600
 # (b)'s loss against one process's step over the whole batch at once: the
 # ranks' GEMMs of B / DP_RANKS rows round bf16 otherwise than the whole
 # batch's, and the gap grows over the 28 layers (2.8e-4 measured, NVIDIA
@@ -595,6 +647,28 @@ PG15_LAUNCH_ARGS = ("--requests", "8", "--steps", "4")
 PG15_LAUNCH_TIMEOUT_S = 300
 PATH15_KERNELS = ("batch_similarity_gather", "pairwise_adjacency",
                   "topk_merge")
+# phase 16: tensor parallelism on a model axis and data-parallel MoE (run
+# after phase 15), TP_RANKS gloo ranks sharing the card, spawned once (the
+# 2-rank meshes are the first two ranks', ProcessGroupMesh.sub). (a)
+# TRAIN_ARCH at full width and depth: RAG_Q prompts of RAG_PROMPT tokens
+# through the prefill step, then TP16_DECODE_STEPS decode steps at B =
+# RAG_Q, on each of TP16_SERVE_MESHES (its 2 kv heads split at m = 2, are
+# replicated at m = 4). (b) TRAIN_ARCH trained on TP16_TRAIN_MESH,
+# TP16_TRAIN_STEPS steps of TRAIN_B x TRAIN_S global batches. (c)
+# TP16_MOE_ARCH at full width, TP16_MOE_LAYERS of its layers: a train step
+# on each of TP16_MOE_TRAIN_MESHES (data parallel, expert parallel) and
+# TP16_DECODE_STEPS decode steps on TP16_MOE_SERVE_MESH, the routes
+# replayed from one process's. Each against one process on the card, run
+# before the ranks start: logits and gradients within TP16_ULPS bf16 ulps
+# of the largest |value| (phase 11's decode bound; phase 13 (c)'s gradient
+# bound), losses within DP_WHOLE_LOSS_RTOL, dropped pairs equal
+TP_RANKS = 4
+TP16_SERVE_MESHES = ((1, 2), (1, 4))
+TP16_TRAIN_MESH, TP16_TRAIN_STEPS = (2, 2), 3
+TP16_DECODE_STEPS = 8
+TP16_MOE_ARCH, TP16_MOE_LAYERS = "moonshot-v1-16b-a3b", 2
+TP16_MOE_TRAIN_MESHES, TP16_MOE_SERVE_MESH = ((2, 1), (1, 2)), (1, 2)
+TP16_ULPS = 8
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
@@ -1168,6 +1242,11 @@ def main_path(torch, args, report, device):
     torch.cuda.synchronize()
     lockstep_s = time.perf_counter() - tl
     same(lock, LANES, "lockstep batch_pss")
+    report.setdefault("reduced", []).append(
+        f"phases 4 and 6 rerun the first {RERUN} queries on the plain "
+        "versions, not 8: phase 4's rerun of 8 took 23.5 s of a 1 087.3 s "
+        "script (NVIDIA H100 80GB HBM3, 700 W), which a slower host took "
+        "past its 1 200 s limit")
     tr = time.perf_counter()
     ref = tbp.batch_pss(graph, qs[:RERUN], K, eps, ef=EF, kernel_impl="ref")
     rerun_s = time.perf_counter() - tr
@@ -2705,7 +2784,8 @@ def per_query_path(torch, report, graph, qs_np, eps, served4, q9=Q9,
             f"phase 9 runs {q9} queries, PDS {pds_queries} of them: at 8 "
             "queries each it took 626 s (NVIDIA H100 80GB HBM3, 700 W), 350 s "
             "of it PDS (7 of 8 N/A at max_K = 1024) and ~200 s its "
-            "batch_pds check")
+            "batch_pds check; at 4 it took 45.5 s of a 1 087.3 s script, "
+            "which a slower host took past its 1 200 s limit")
     if PDS_MAX_K != TABLE2_MAX_K:
         report.setdefault("reduced", []).append(
             f"phase 9's PDS runs at max_K = {PDS_MAX_K}, not "
@@ -3205,14 +3285,17 @@ def hnsw_path(torch, report, x_np, qs_np, seed, device):
     t_path = time.perf_counter()
     report.setdefault("reduced", []).append(
         f"phase 10 builds its HNSW graph over the first {len(x_np)} rows of "
-        "phase 4's corpus, a quarter of the benchmarks' N_DEFAULT of 20 000 "
-        "and not 1M: the builder is host code, one insert at a time "
+        "phase 4's corpus, a twentieth of the benchmarks' N_DEFAULT of "
+        "20 000 and not 1M: the builder is host code, one insert at a time "
         "(4.36-4.62 ms an insert at 20 000 rows on H100 machines' hosts, "
-        "more as the graph deepens: hours at 1M); at 20 000 rows the whole "
+        "more as the graph deepens: hours at 1M), and at the eps of degree "
+        "100 a query expands nearly every row; at 20 000 rows the whole "
         "script took 1 260.5 s (NVIDIA H100 80GB HBM3, 700 W), past its "
-        "1 200 s limit, and at 10 000 phase 10 took 395-419 s of a 1 011.4 s "
-        "script before phase 14 was added; its facade, rebuild and shards "
-        f"run on the first {FD10_ROWS} rows")
+        "1 200 s limit, at 10 000 phase 10 took 395-419 s of a 1 011.4 s "
+        "script before phase 14 was added, and at 5 000 273.7 s of a "
+        "1 087.3 s script, which a slower host took past the limit; its "
+        f"facade, rebuild and shards run on the first {FD10_ROWS} rows "
+        "(54 s of phase 10 at 1 024)")
     report["reduced"].append(
         f"phase 10's engines serve {SERVED10} of the 64 queries (one wave "
         f"of the 16 lanes, all held to the lockstep batch), rerun "
@@ -4595,11 +4678,13 @@ def rows_step(cfg, opt, parts: int):
 
 
 def pg_train_rank(rank, world, tmp, seed):
-    """Phase 14 (b) on one rank: DP_STEPS data-parallel steps of the full
-    model under deterministic algorithms; then rank 0 runs one process's
-    steps on the same global batches, in the ranks' row blocks and whole,
-    and holds the ranks' against them."""
+    """Phase 14 (b) on one rank: DP_STEPS data-parallel steps of the model
+    at full width and DP_LAYERS layers under deterministic algorithms;
+    then rank 0 runs one process's steps on the same global batches, in
+    the ranks' row blocks and whole, and holds the ranks' against them."""
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import dataclasses
+
     import torch
     import torch.distributed as dist
 
@@ -4612,7 +4697,7 @@ def pg_train_rank(rank, world, tmp, seed):
     from repro_torch.train.data import SyntheticLM
     from repro_torch.models import model as M
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=DP_LAYERS)
     data = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=seed)
 
     def batch(i):
@@ -4846,6 +4931,12 @@ def process_group_path(torch, report, index, x, qs_np, eps, served6, seed,
             log(f"phase 14 (a) rank {r}: " + json.dumps(rk))
 
         # (b) data-parallel training on the card
+        report.setdefault("reduced", []).append(
+            f"phase 14 (b) trains {TRAIN_ARCH} data parallel at full width "
+            f"and {DP_LAYERS} of its 28 layers: at 28 it took 74 s of a "
+            "1 087.3 s script (NVIDIA H100 80GB HBM3, 700 W), which a "
+            "slower host took past its 1 200 s limit; phase 16 (b) trains "
+            "all 28 layers on a (2, 2) mesh")
         t0 = time.perf_counter()
         pg_spawn(torch, pg_train_rank, DP_RANKS, tmp, seed)
         out["b"] = pg_train_results(tmp)
@@ -4942,8 +5033,9 @@ def pg_train_results(tmp) -> dict:
     steps_ms = [s * 1e3 for s in lead["step_s"]]
     share = [c / s for c, s in zip(lead["collective_s"], lead["step_s"])]
     return dict(
-        arch=TRAIN_ARCH, ranks_n=DP_RANKS, global_batch=TRAIN_B, seq=TRAIN_S,
-        steps=DP_STEPS, losses=lead["losses"],
+        arch=TRAIN_ARCH, layers=DP_LAYERS, ranks_n=DP_RANKS,
+        global_batch=TRAIN_B, seq=TRAIN_S, steps=DP_STEPS,
+        losses=lead["losses"],
         one_process_losses=cmp["one"]["losses"],
         loss_rel_gaps=cmp["losses_rel"], ms_per_step=steps_ms,
         ms_per_step_median_after_first=float(np.median(steps_ms[1:])),
@@ -5515,6 +5607,527 @@ def facade_pg_path(torch, report, rows, qs_np, eps, seed, device):
     return launches
 
 
+# ------------------------------------------------------------ phase 16 ----
+
+def tp16_memory(cfg_dense, cfg_moe) -> dict:
+    """Each rank's reckoned peak (GB) in each part and the card's total
+    over the ranks, from the parameter counts: bf16 parameters, their
+    gradients and AdamW's two float32 moments a training rank holds (its
+    slices on a model axis), and the whole model every rank draws once
+    before it keeps its slices. Activations and temporaries are not
+    counted (one process's measured peaks are printed beside)."""
+    def counts(cfg):
+        from repro_torch.models import model as M
+        return sum(p.numel() for p in M.abstract_params(cfg).parameters())
+
+    gb = 1e9
+    dense, moe = counts(cfg_dense), counts(cfg_moe)
+    train = 2 + 2 + 8                  # bytes a parameter: p, g, mu and nu
+    m_train = TP16_TRAIN_MESH[1]
+    out = dict(
+        dense_params=dense, moe_params=moe,
+        a_rank_gb=dense * 2 / gb,
+        b_rank_gb=dense * (2 + train / m_train) / gb,
+        c_data_rank_gb=moe * train / gb,
+        c_model_rank_gb=moe * (2 + train / 2) / gb,
+        one_process_gb=max(dense, moe) * train / gb)
+    out["card_peak_gb"] = max(TP_RANKS * out["b_rank_gb"],
+                              2 * out["c_data_rank_gb"])
+    return out
+
+
+class Tp16Routes:
+    """Phase 16 (c)'s MoE routes: records each ``moe.route`` call's experts
+    (or, with ``replay`` set, makes each call take the next recorded
+    experts, its gates renormalised over them, as ``RouteLog`` does) and
+    counts each call's dropped pairs, over the data ranks' global
+    placement (``moe.place``) where there is one."""
+
+    def __init__(self, moe, replay=None):
+        self.log = RouteLog(moe)
+        self.log.replay = replay
+        self.moe, self.real_place = moe, moe.place
+        self.drops: list[int] = []
+
+    def __enter__(self):
+        self.log.__enter__()
+        inner = self.moe.route
+
+        def route(*a):
+            out = inner(*a)
+            self.drops.append(int((~out[4]).sum()))
+            return out
+
+        def place(*a):
+            out = self.real_place(*a)
+            self.drops[-1] = int((~out[1]).sum())
+            return out
+
+        self.moe.route, self.moe.place = route, place
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.place = self.real_place
+        self.log.__exit__(*exc)
+
+
+def tp16_prompts(torch, cfg, seed, device):
+    """RAG_Q prompts of RAG_PROMPT tokens, then the TP16_DECODE_STEPS
+    tokens the decode steps are fed: [RAG_Q, RAG_PROMPT + steps]."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1601)
+    return torch.randint(0, cfg.vocab_size,
+                         (RAG_Q, RAG_PROMPT + TP16_DECODE_STEPS),
+                         generator=gen, device=device, dtype=torch.int32)
+
+
+def tp16_serve(torch, M, steps_mod, cfg, params, toks, mesh, device,
+               profile_last=False):
+    """The prefill step on the prompts and TP16_DECODE_STEPS decode steps
+    along the tokens after them (from an empty cache): (prefill logits
+    [B, RAG_PROMPT, V], decode logits [B, steps, V], each step's synced
+    wall and seconds inside the mesh's collectives, and with
+    ``profile_last`` the last step's device activities under
+    torch.profiler)."""
+    prefill, _ = steps_mod.build_prefill_step(cfg, mesh)
+    serve, _ = steps_mod.build_serve_step(cfg, mesh)
+    pre = prefill(params, {"tokens": toks[:, :RAG_PROMPT]})
+    cache = M.init_cache(cfg, toks.shape[0], TP16_DECODE_STEPS,
+                         device=device, mesh=mesh)
+    out, walls, colls, launches = [], [], [], None
+    for t in range(TP16_DECODE_STEPS):
+        c0 = mesh.collective_s if mesh is not None else 0.0
+        t0 = time.perf_counter()
+
+        def step():
+            return serve(params, cache, toks[:, RAG_PROMPT + t:
+                                             RAG_PROMPT + t + 1])
+
+        if profile_last and t == TP16_DECODE_STEPS - 1:
+            launches, (logits, cache) = tp16_profiled(torch, step)
+        else:
+            logits, cache = step()
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        colls.append((mesh.collective_s if mesh is not None else 0.0) - c0)
+        out.append(logits[:, 0])
+    return pre, torch.stack(out, 1), dict(
+        ms_per_step=[w * 1e3 for w in walls],
+        collective_share=[c / w for c, w in zip(colls, walls)],
+        launches_per_step=launches)
+
+
+def tp16_batches(cfg, seed, n):
+    from repro_torch.train.data import SyntheticLM
+    data = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=seed + 1602)
+    return [data.batch_at(i) for i in range(n)]
+
+
+def tp16_moe_cfg(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=TP16_MOE_LAYERS)
+
+
+def tp16_reference(torch, tmp, seed, device) -> dict:
+    """One process on the card at each of phase 16's shapes, before the
+    ranks start: (a)'s prefill and decode logits, (b)'s losses and first
+    gradients, (c)'s train step (loss, gradients, routes and drops) and
+    decode (logits, routes and drops), written to ``tmp``; the card is
+    freed. Returns the walls and peaks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.train import optimizer as opt_mod
+
+    out: dict = {}
+    cfg = get_config(TRAIN_ARCH)
+    params = M.init_params(cfg, seed + 1600, device)
+    toks = tp16_prompts(torch, cfg, seed, device)
+    t0 = time.perf_counter()
+    pre, dec, steps = tp16_serve(torch, M, steps_mod, cfg, params, toks,
+                                 None, device)
+    out["a"] = dict(s=time.perf_counter() - t0,
+                    decode_ms=steps["ms_per_step"])
+    torch.save({"prefill": pre.cpu(), "decode": dec.cpu()},
+               os.path.join(tmp, "a.pt"))
+    del pre, dec
+
+    def train(cfg, params, batches, opts=None):
+        opt = GradCapture(opt_mod.AdamW(lr=opt_mod.cosine_schedule(
+            3e-3, 1, TRAIN_STEPS)))
+        step, _ = steps_mod.build_train_step(cfg, None, optimizer=opt,
+                                             opts=opts)
+        state = opt.init(params)
+        losses, walls = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, {
+                k: torch.as_tensor(v, device=device) for k, v in b.items()})
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t0)
+        grads = {n: g.cpu() for n, g in opt.first.items()}
+        return losses, walls, grads
+
+    torch.cuda.reset_peak_memory_stats()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        losses, walls, grads = train(cfg, params, tp16_batches(
+            cfg, seed, TP16_TRAIN_STEPS))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["b"] = dict(losses=losses, ms_per_step=[w * 1e3 for w in walls],
+                    peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    torch.save({"losses": losses, "grads": grads},
+               os.path.join(tmp, "b.pt"))
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg = tp16_moe_cfg(get_config(TP16_MOE_ARCH))
+    params = M.init_params(mcfg, seed + 1603, device)
+    torch.cuda.reset_peak_memory_stats()
+    with Tp16Routes(moe) as rec:
+        losses, walls, grads = train(mcfg, params,
+                                     tp16_batches(mcfg, seed, 1))
+    train_rec = dict(loss=losses[0], routes=[e.cpu() for e in rec.log.log],
+                     drops=rec.drops, grads=grads)
+    out["c_train"] = dict(loss=losses[0], ms=walls[0] * 1e3,
+                          drops=rec.drops, peak_allocated_bytes=
+                          torch.cuda.max_memory_allocated())
+    torch.save(train_rec, os.path.join(tmp, "c_train.pt"))
+    del params, grads, train_rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init_params(mcfg, seed + 1603, device)
+    mtoks = tp16_prompts(torch, mcfg, seed, device)
+    with Tp16Routes(moe) as rec:
+        _, dec, steps = tp16_serve(torch, M, steps_mod, mcfg, params, mtoks,
+                                   None, device)
+    out["c_decode"] = dict(decode_ms=steps["ms_per_step"], drops=rec.drops)
+    torch.save({"decode": dec.cpu(), "routes": [e.cpu() for e in
+                                                rec.log.log],
+                "drops": rec.drops}, os.path.join(tmp, "c_decode.pt"))
+    del params, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp16_logit_gap(torch, got, want) -> dict:
+    """``got`` against ``want`` in bf16 ulps of ``want``'s largest |logit|
+    (gated at TP16_ULPS by the caller)."""
+    want = want.to(got.device)
+    unit = bf16_ulp(float(want.abs().max()))
+    gap = float((got.float() - want.float()).abs().max())
+    return dict(max_abs_err=gap, ulps_of_largest=gap / unit,
+                ok=gap <= TP16_ULPS * unit)
+
+
+def tp16_grad_gap(torch, sh, mesh, specs, got: dict, want: dict) -> dict:
+    """Each of this rank's first-step gradients (its slices) against the
+    same slices of one process's, in bf16 ulps of the whole leaf's largest
+    |entry|: the worst, the three widest leaves, and the leaves past
+    TRAIN_GRAD_ULPS."""
+    gaps, bad = {}, []
+    for n, g in got.items():
+        whole = want[n]
+        unit = bf16_ulp(float(whole.float().abs().max()))
+        w = whole if specs is None or not sh.on_axis(specs[n]) else \
+            sh.shard_leaf(whole, specs[n], mesh)
+        gap = float((g.float() - w.to(g.device).float()).abs().max())
+        if unit:
+            gaps[n] = gap / unit
+        if gap > TRAIN_GRAD_ULPS * unit:
+            bad.append(f"{n}: {gap / unit if unit else gap} ulps")
+    widest = sorted(gaps.items(), key=lambda kv: -kv[1])[:3]
+    return dict(worst_grad_ulps=widest[0][1] if widest else 0.0,
+                widest=widest, failures=bad[:10], ok=not bad)
+
+
+def tp16_profiled(torch, fn):
+    """(device activities: kernels, copies, sets, ``fn()``) of one call
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    return len(device_events(torch, prof)), res
+
+
+def tp16_rank(rank, world, tmp, seed):
+    """Phase 16 on one of TP_RANKS gloo ranks sharing the card: (a), (b)
+    and (c) in turn, each on its mesh (the ranks outside a 2-rank mesh go
+    on to the next part and wait in its first collective). Writes
+    ``<tmp>/tp16_<rank>.json``. (b) runs under deterministic algorithms,
+    as one process's (b) does, so that its gaps repeat from run to run."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+    import torch.distributed as dist
+
+    dev, mesh4 = pg_rank_mesh(torch, rank, world, tmp, "tp16", "gloo")
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.train import optimizer as opt_mod
+
+    axes = ("data", "model")
+    meshes = {shape: mesh4.sub(math.prod(shape), shape, axes) for shape in
+              (*TP16_SERVE_MESHES, TP16_TRAIN_MESH, *TP16_MOE_TRAIN_MESHES,
+               TP16_MOE_SERVE_MESH)}
+    ops.reset_launch_counts()
+    out: dict = {"rank": rank}
+    # only rank 0 profiles (a step's launches are every rank's); its first
+    # profile in a process took 13.6-13.8 s to start (with four ranks
+    # starting theirs at once, NVIDIA H100 80GB HBM3): paid here, not
+    # inside a part
+    if rank == 0:
+        t0 = time.perf_counter()
+        tp16_profiled(torch, lambda: torch.ones(1, device=dev).sum())
+        out["profiler_start_s"] = time.perf_counter() - t0
+
+    def part(mesh):
+        """Counters zeroed for a part on ``mesh``."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return mesh.collective_s, time.perf_counter()
+
+    def ended(mesh, start) -> dict:
+        torch.cuda.synchronize()
+        c0, t0 = start
+        return dict(wall_s=time.perf_counter() - t0,
+                    collective_s=mesh.collective_s - c0,
+                    peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    def settle(key):
+        """The part's memory back to the card, on every rank (those
+        outside a part's mesh too: the card is shared)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        if key in out:
+            log(f"phase 16 rank {rank} {key}: {out[key]['wall_s']:.1f} s, "
+                f"peak {out[key]['peak_allocated_gb']:.2f} GB")
+
+    # (a) serving qwen2-1.5b at full width on (1, 2) and (1, 4)
+    cfg = get_config(TRAIN_ARCH)
+    ref_a = torch.load(os.path.join(tmp, "a.pt"), mmap=True)
+    toks = tp16_prompts(torch, cfg, seed, dev)
+    for shape in TP16_SERVE_MESHES:
+        mesh = meshes[shape]
+        if not mesh.member:
+            continue
+        start = part(mesh)
+        params = M.init_params(cfg, seed + 1600, dev, mesh)
+        pre, dec, steps = tp16_serve(torch, M, steps_mod, cfg, params, toks,
+                                     mesh, dev, profile_last=rank == 0)
+        res = ended(mesh, start)
+        res.update(prefill=tp16_logit_gap(torch, pre, ref_a["prefill"]),
+                   decode=tp16_logit_gap(torch, dec, ref_a["decode"]),
+                   **steps)
+        out[f"a_{shape[0]}x{shape[1]}"] = res
+        del params, pre, dec
+        settle(f"a_{shape[0]}x{shape[1]}")
+    del ref_a
+
+    # (b) training qwen2-1.5b at full width on (2, 2)
+    mesh = meshes[TP16_TRAIN_MESH]
+    ref_b = torch.load(os.path.join(tmp, "b.pt"), mmap=True)
+    start = part(mesh)
+    torch.use_deterministic_algorithms(True)
+    params = M.init_params(cfg, seed + 1600, dev, mesh)
+    opt = GradCapture(opt_mod.AdamW(lr=opt_mod.cosine_schedule(
+        3e-3, 1, TRAIN_STEPS)))
+    step, _ = steps_mod.build_train_step(cfg, mesh, optimizer=opt)
+    state = opt.init(params)
+    losses, walls, colls = [], [], []
+    for i, b in enumerate(tp16_batches(cfg, seed, TP16_TRAIN_STEPS)):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        c0, t0 = mesh.collective_s, time.perf_counter()
+        launches = None
+        if i == TP16_TRAIN_STEPS - 1 and rank == 0:  # the last, profiled
+            launches, (params, state, loss) = tp16_profiled(
+                torch, lambda: step(params, state, batch))
+        else:
+            params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+        colls.append(mesh.collective_s - c0)
+        if i == 0:
+            grads = tp16_grad_gap(torch, sh, mesh, params.mp.specs,
+                                  opt.first, ref_b["grads"])
+            opt.first = {}
+    torch.use_deterministic_algorithms(False)
+    res = ended(mesh, start)
+    res.update(losses=losses, one_process_losses=ref_b["losses"],
+               loss_rel_gaps=[abs(a - b) / abs(b) for a, b in
+                              zip(losses, ref_b["losses"])],
+               ms_per_step=[w * 1e3 for w in walls],
+               collective_share=[c / w for c, w in zip(colls, walls)],
+               grads=grads, launches_per_step=launches,
+               profiled_step=TP16_TRAIN_STEPS - 1)
+    out["b"] = res
+    del params, state, opt, step, ref_b, grads, batch
+    settle("b")
+
+    # (c) moonshot-v1-16b-a3b at full width, TP16_MOE_LAYERS layers
+    mcfg = tp16_moe_cfg(get_config(TP16_MOE_ARCH))
+    ref_t = torch.load(os.path.join(tmp, "c_train.pt"), mmap=True)
+    for shape in TP16_MOE_TRAIN_MESHES:
+        mesh = meshes[shape]
+        if not mesh.member:
+            continue
+        dp = shape[0]
+        rows = slice(mesh.coords[0] * TRAIN_B * TRAIN_S // dp,
+                     (mesh.coords[0] + 1) * TRAIN_B * TRAIN_S // dp)
+        start = part(mesh)
+        params = M.init_params(mcfg, seed + 1603, dev, mesh)
+        opt = GradCapture(opt_mod.AdamW(lr=opt_mod.cosine_schedule(
+            3e-3, 1, TRAIN_STEPS)))
+        step, _ = steps_mod.build_train_step(mcfg, mesh, optimizer=opt)
+        state = opt.init(params)
+        b = tp16_batches(mcfg, seed, 1)[0]
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        with Tp16Routes(moe, [e[rows] for e in ref_t["routes"]]) as rec:
+            c0, t0 = mesh.collective_s, time.perf_counter()
+            if rank == 0:
+                launches, (params, state, loss) = tp16_profiled(
+                    torch, lambda: step(params, state, batch))
+            else:
+                launches = None
+                params, state, loss = step(params, state, batch)
+            loss = float(loss)
+            wall = time.perf_counter() - t0
+        res = ended(mesh, start)
+        res.update(loss=loss, one_process_loss=ref_t["loss"],
+                   loss_rel_gap=abs(loss - ref_t["loss"]) / abs(
+                       ref_t["loss"]),
+                   ms_per_step=wall * 1e3, launches_per_step=launches,
+                   collective_share=(mesh.collective_s - c0) / wall,
+                   drops=rec.drops, one_process_drops=ref_t["drops"],
+                   route_flips=rec.log.flips, routes=rec.log.routes,
+                   grads=tp16_grad_gap(torch, sh, mesh, getattr(
+                       params.mp, "specs", None), opt.first,
+                       ref_t["grads"]))
+        out[f"c_train_{shape[0]}x{shape[1]}"] = res
+        del params, state, opt, step, batch
+        settle(f"c_train_{shape[0]}x{shape[1]}")
+    del ref_t
+    settle(None)
+    mesh = meshes[TP16_MOE_SERVE_MESH]
+    if mesh.member:
+        ref_d = torch.load(os.path.join(tmp, "c_decode.pt"), mmap=True)
+        start = part(mesh)
+        params = M.init_params(mcfg, seed + 1603, dev, mesh)
+        mtoks = tp16_prompts(torch, mcfg, seed, dev)
+        with Tp16Routes(moe, list(ref_d["routes"])) as rec:
+            _, dec, steps = tp16_serve(torch, M, steps_mod, mcfg, params,
+                                       mtoks, mesh, dev,
+                                       profile_last=rank == 0)
+        res = ended(mesh, start)
+        res.update(decode=tp16_logit_gap(torch, dec, ref_d["decode"]),
+                   drops=rec.drops, one_process_drops=ref_d["drops"],
+                   **steps)
+        out["c_decode_1x2"] = res
+        del params, dec, ref_d
+        settle("c_decode_1x2")
+    out["launches"] = ops.launch_counts()
+    out["staged_bytes"] = sum(m.staged_bytes for m in meshes.values())
+    with open(os.path.join(tmp, f"tp16_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    mesh4.barrier()
+    dist.destroy_process_group()
+
+
+def tp16_check(ranks) -> list[str]:
+    """Phase 16's failed gates over the ranks' results."""
+    bad = []
+    for rk in ranks:
+        r = rk["rank"]
+        for key, res in rk.items():
+            if not isinstance(res, dict) or key == "launches":
+                continue
+            for what in ("prefill", "decode", "grads"):
+                if what in res and not res[what]["ok"]:
+                    bad.append(f"{key} rank {r} {what}: {res[what]}")
+            if key == "b" and max(res["loss_rel_gaps"]) > DP_WHOLE_LOSS_RTOL:
+                bad.append(f"b rank {r} losses: {res['loss_rel_gaps']}")
+            if key.startswith("c_train") and (
+                    res["loss_rel_gap"] > DP_WHOLE_LOSS_RTOL):
+                bad.append(f"{key} rank {r} loss: {res['loss_rel_gap']}")
+        if any(rk["launches"].values()):
+            bad.append(f"rank {r} launched a search kernel: "
+                       f"{rk['launches']}")
+    for key in ("c_train_2x1", "c_train_1x2", "c_decode_1x2"):
+        holders = [rk[key] for rk in ranks if key in rk]
+        want = holders[0]["one_process_drops"]
+        data = key == "c_train_2x1"
+        got = ([sum(x) for x in zip(*(h["drops"] for h in holders))] if data
+               else holders[0]["drops"])
+        if got != want or (not data and any(h["drops"] != want
+                                            for h in holders)):
+            bad.append(f"{key} drops {[h['drops'] for h in holders]} "
+                       f"against one process's {want}")
+    return bad
+
+
+def tensor_parallel_path(torch, report, seed, device):
+    """Phase 16: tensor parallelism on a model axis and data-parallel MoE
+    over gloo ranks sharing the card (see the module docstring). Returns
+    the path's launches of every kernel (none is on it)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    report.setdefault("reduced", []).append(
+        f"phase 16 (c) runs {TP16_MOE_ARCH} at full width with "
+        f"{TP16_MOE_LAYERS} of its {get_config(TP16_MOE_ARCH).num_layers} "
+        "layers (a depth cut: one process's step and the ranks' fit the "
+        "card and the phase's time)")
+    out: dict = {}
+    t_path = time.perf_counter()
+    mem = tp16_memory(get_config(TRAIN_ARCH),
+                      tp16_moe_cfg(get_config(TP16_MOE_ARCH)))
+    out["memory_reckoned"] = mem
+    log("phase 16 reckoned peaks (GB): " + json.dumps(mem))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp16_")
+    try:
+        t0 = time.perf_counter()
+        out["one_process"] = tp16_reference(torch, tmp, seed, device)
+        out["one_process"]["wall_s"] = time.perf_counter() - t0
+        log("phase 16 one process: " + json.dumps(out["one_process"]))
+        t0 = time.perf_counter()
+        pg_spawn(torch, tp16_rank, TP_RANKS, tmp, seed)
+        out["ranks_wall_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(tmp, f"tp16_{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["ranks"] = ranks
+    for rk in ranks:
+        log(f"phase 16 rank {rk['rank']}: " + json.dumps(rk))
+    bad = tp16_check(ranks)
+    out["path_s"] = time.perf_counter() - t_path
+    report["tensor_parallel_path"] = out
+    if bad:
+        raise AssertionError("phase 16: " + "; ".join(bad))
+    launches = {name: 0 for name in ops.KERNELS}
+    for rk in ranks:
+        for name, n in rk["launches"].items():
+            launches[name] += n
+    return launches
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5602,6 +6215,8 @@ def main() -> int:
     pglaunches = phase("15", facade_pg_path, torch, report,
                        graph.vectors[:EL_ROWS].cpu().numpy(), qs_np, eps,
                        args.seed, device)
+    tplaunches = phase("16", tensor_parallel_path, torch, report, args.seed,
+                       device)
     plaunches, hist9 = phase("9", per_query_path, torch, report, graph,
                              qs_np, eps, served4)
     hists = [report["main_path"]["widths"], report["sharded_path"]["widths"]]
@@ -5623,16 +6238,16 @@ def main() -> int:
                         / prof["sim_gather_launches"]
                         if prof["sim_gather_launches"] else None)
     row["device_us_kept"] = prof["sim_gather_launches"]
-    # each kernel's launches over the twelve paths' runs (each path's own
-    # counts are in chip_smoke.json; phases 14's and 15's are their ranks'
-    # sums)
+    # each kernel's launches over the thirteen paths' runs (each path's own
+    # counts are in chip_smoke.json; phases 14's, 15's and 16's are their
+    # ranks' sums)
     kernels = []
     for name, row in timings.items():
         total = (launches[name] + qlaunches[name] + slaunches[name]
                  + flaunches[name] + rlaunches[name] + falaunches[name]
                  + tlaunches[name] + elaunches[name]
-                 + glaunches[name] + pglaunches[name] + plaunches[name]
-                 + hlaunches[name])
+                 + glaunches[name] + pglaunches[name] + tplaunches[name]
+                 + plaunches[name] + hlaunches[name])
         kernels.append(dict(row, launches=int(total)))
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - T0

@@ -172,10 +172,9 @@ class ProcessGroupMesh:
         self.gathered_bytes = 0
         self.collective_s = 0.0
         self.broadcast_s = 0.0
-        if not self.member:
-            return
         # one sub-group per line of ranks along each axis; every rank makes
-        # every group, in the same order (``new_group``'s contract)
+        # every group, in the same order (``new_group``'s contract), a rank
+        # outside the mesh (``sub``) too
         self._axis_groups = {}
         for ax, name in enumerate(self.axis_names):
             if len(self.shape) == 1:
@@ -198,24 +197,32 @@ class ProcessGroupMesh:
         mesh."""
         return int(self.member)
 
-    def sub(self, t: int) -> "ProcessGroupMesh":
-        """The one-axis mesh of this group's first ``t`` ranks. Its
-        sub-group is made on first use by ``dist.new_group``, which every
+    def sub(self, t: int, shape=None, axis_names=None
+            ) -> "ProcessGroupMesh":
+        """The mesh of this group's first ``t`` ranks: one axis (this
+        mesh's), or ``shape`` over ``axis_names`` (t ranks in all). Its
+        groups are made on first use by ``dist.new_group``, which every
         rank of the group must call in the same order, those outside the
         sub-group included; later calls return the same mesh."""
         import torch.distributed as dist
 
-        if len(self.shape) != 1 or not 1 <= t <= self.size:
-            raise ValueError(f"no sub-mesh of {t} ranks in a mesh of shape "
-                             f"{self.shape}")
-        if t == self.size:
+        shape = (t,) if shape is None else tuple(int(n) for n in shape)
+        axis_names = self.axis_names if axis_names is None else tuple(
+            axis_names)
+        if (len(self.shape) != 1 or not 1 <= t <= self.size
+                or math.prod(shape) != t):
+            raise ValueError(f"no sub-mesh of {t} ranks (shape {shape}) in "
+                             f"a mesh of shape {self.shape}")
+        if t == self.size and shape == self.shape:
             return self
-        if t not in self._subs:
+        key = (shape, axis_names)
+        if key not in self._subs:
             members = self.ranks[:t]
-            self._subs[t] = ProcessGroupMesh(
-                (t,), self.axis_names, dist.new_group(members), self.device,
-                world=self, ranks=members)
-        return self._subs[t]
+            group = self.group if t == self.size else dist.new_group(members)
+            self._subs[key] = ProcessGroupMesh(
+                shape, axis_names, group, self.device, world=self,
+                ranks=members)
+        return self._subs[key]
 
     def axis_size(self, axis_name: str | None = None) -> int:
         return self.shape[self._axis(axis_name)]

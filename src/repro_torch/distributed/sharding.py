@@ -22,6 +22,10 @@ Baseline policy (deliberately simple and always divisibility-safe):
 keeps its slice of a leaf (``shard_leaf``) and the whole leaf comes back
 by gathering the slices (``gather_leaf``). A mesh here is anything with
 ``shape`` (a tuple, or a dict of axis sizes) and ``axis_names``.
+``param_specs`` gives the spec of each parameter of the port's module (by
+its name), ``local_shape`` a rank's slice's shape and ``on_axis`` whether
+a spec splits a dimension over an axis: what a rank's tensor-parallel
+module (``models.model.shard``) is cut by.
 """
 from __future__ import annotations
 
@@ -166,6 +170,42 @@ def param_spec_tree(cfg: ModelConfig, params: Any, mesh, fsdp: bool = False):
 
     return _walk(param_layout(params),
                  lambda path, shape: fsdpify(leaf_spec(path, shape), shape))
+
+
+def param_specs(cfg: ModelConfig, mesh) -> dict[str, tuple]:
+    """{parameter name of the port's module: its spec}, each the spec of
+    its stacked leaf in :func:`param_spec_tree` less the stacked axes'
+    entries. The rules read the whole shapes (``abstract_params``), so a
+    rank's sharded module gives the same answers."""
+    from repro_torch.models.model import abstract_params
+
+    params = abstract_params(cfg)
+    tree = param_spec_tree(cfg, param_layout(params), mesh)
+    out = {}
+    for name, _ in params.named_parameters():
+        path = tuple(name.split("."))
+        axes = 0
+        while path[1 + axes:] and path[1 + axes].isdigit():
+            axes += 1
+        node = tree
+        for key in (path[0],) + path[1 + axes:]:
+            node = node[key]
+        out[name] = tuple(node[axes:])
+    return out
+
+
+def on_axis(spec: tuple, axis: str = "model") -> bool:
+    """Whether ``spec`` splits a dimension over ``axis``."""
+    return any(axis in _entry_axes(e) for e in spec)
+
+
+def local_shape(shape, spec: tuple, mesh) -> torch.Size:
+    """The shape of a rank's slice of a leaf of ``shape`` under ``spec``
+    (:func:`shard_leaf`'s)."""
+    sizes = axis_sizes(mesh)
+    return torch.Size(n // math.prod(sizes[a] for a in _entry_axes(e))
+                      for n, e in zip(shape, tuple(spec) + (None,) * (
+                          len(shape) - len(spec))))
 
 
 def batch_axes_for(b: int, mesh, reserve_model: bool = False

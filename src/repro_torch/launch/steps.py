@@ -2,17 +2,24 @@
 
 ``build_train_step(cfg, mesh)``: the full AdamW training step — loss,
 gradients, update — as a plain callable on the port's module and optimizer
-state. ``build_prefill_step(cfg)``: forward logits only.
-``build_serve_step(cfg)``: one-token decode on a cache. Each returns (step
-function, the abstract inputs: the parameters on ``meta``), as the
+state. ``build_prefill_step(cfg, mesh)``: forward logits only.
+``build_serve_step(cfg, mesh)``: one-token decode on a cache. Each returns
+(step function, the abstract inputs: the parameters on ``meta``), as the
 reference's return (jitted function, abstract inputs).
 
 The reference's ``abstract_*_inputs`` and ``input_specs`` are its XLA
 dry-run contract (sharded stand-ins to lower and compile) and have no
-counterpart. ``mesh`` is None, a mesh of one device, or (the train step) a
-``(data, 1)`` process-group mesh: data parallelism, one batch slice per
-rank, the parameters and optimizer state replicated. A ``model`` axis
-larger than 1 (tensor parallelism) is ROADMAP queue 1 D.2.
+counterpart. ``mesh`` is None, a mesh of one device, or a process-group
+mesh (``compat.make_process_mesh``, ``launch.mesh.make_test_mesh``) of
+axes ``(data, model)`` or ``(pod, data, model)``: each rank takes its
+block of the global batch's rows over the batch axes (pod and data,
+row-major, as the reference's ``_bat``) and holds its slices of the
+parameters over ``model`` (``models.model.init_params`` / ``from_host``
+with the mesh; the reference's GSPMD places them by
+``distributed.sharding.param_spec_tree``, here a rank runs its share of the
+layers with ``distributed.tensor_parallel``'s collectives). Tensor
+parallelism covers the dense and moe families; for the others a ``model``
+axis larger than 1 is ROADMAP queue 1 D.2 item 6.
 """
 from __future__ import annotations
 
@@ -22,47 +29,41 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import axis_sizes
+from repro_torch.distributed.tensor_parallel import (check_tensor_parallel,
+                                                     data_ranks)
 from repro_torch.models import model as M
 from repro_torch.train.optimizer import AdamW
 
 #: float32 elements in one all-reduce of the data-parallel gradient sum
 GRAD_BUCKET = 1 << 26
+#: the axes a step's mesh may have
+MESH_AXES = ("pod", "data", "model")
 
 
-def data_parallel_size(mesh) -> int:
-    """The mesh's ``data`` size; refuses any other axis larger than 1 (a
-    ``model`` axis is tensor parallelism, ROADMAP queue 1 D.2) and a data
-    axis larger than 1 that is not a process group."""
-    if mesh is None:
-        return 1
-    sizes = axis_sizes(mesh)
-    other = {a: n for a, n in sizes.items() if a != "data" and n != 1}
-    if other:
-        raise NotImplementedError(
-            f"a mesh of axes {sizes}: the port's steps are data parallel; "
-            "a model (tensor-parallel) or pod axis is ROADMAP queue 1 D.2")
-    data = sizes.get("data", math.prod(sizes.values()))
-    if data > 1 and getattr(mesh, "local_size", data) != 1:
-        raise NotImplementedError(
-            f"a data axis of {data} on one process: data parallelism runs "
-            "one rank per batch slice (compat.make_process_mesh)")
-    return data
-
-
-def check_one_device(mesh) -> None:
-    """Refuse a mesh of more than one device (the prefill and decode
-    steps, which do not shard)."""
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Refuse a mesh the steps cannot run on: an axis other than ``pod``,
+    ``data`` and ``model`` larger than 1, a mesh of more than one device
+    that is not a process group (one rank a block), and a ``model`` axis
+    larger than 1 for the families that do not run tensor parallel
+    (ROADMAP queue 1 D.2 item 6)."""
     if mesh is None:
         return
     sizes = axis_sizes(mesh)
-    if math.prod(sizes.values()) != 1:
+    other = {a: n for a, n in sizes.items() if a not in MESH_AXES and n != 1}
+    if other:
+        raise ValueError(f"a mesh of axes {sizes}: the steps split the batch "
+                         f"over pod and data and the layers over model")
+    if math.prod(sizes.values()) > 1 and getattr(mesh, "local_size",
+                                                 None) != 1:
         raise NotImplementedError(
-            f"a mesh of axes {sizes}: the port's prefill and decode steps "
-            "run on one device; sharding them is ROADMAP queue 1 D.2")
+            f"a mesh of axes {sizes} on one process: the steps run one rank "
+            "a block (compat.make_process_mesh)")
+    check_tensor_parallel(cfg, mesh)
 
 
-def psum_grads(grads: list, mesh, axis: str = "data") -> None:
-    """Sum every rank's gradients, in place: each bucket of up to
+def psum_grads(grads: list, dp) -> None:
+    """Sum every data rank's gradients (``dp``, a
+    ``tensor_parallel.DataRanks``), in place: each bucket of up to
     ``GRAD_BUCKET`` elements is upcast to float32, all-reduced, and
     rounded back to its gradient's dtype."""
     i = 0
@@ -74,7 +75,7 @@ def psum_grads(grads: list, mesh, axis: str = "data") -> None:
             j += 1
         flat = torch.cat([g.reshape(-1).to(torch.float32)
                           for g in grads[i:j]])
-        flat = mesh.psum(flat[None], axis)
+        flat = dp.psum(flat)
         off = 0
         for g in grads[i:j]:
             g.copy_(flat[off:off + g.numel()].view_as(g))
@@ -91,47 +92,40 @@ def build_train_step(cfg: ModelConfig, mesh=None, *,
     ``params`` if off), then the optimizer's update, which writes the new
     parameters and moments in place (the reference donates them).
 
-    On a ``(data, 1)`` process-group mesh of D ranks every rank is given
-    the same global batch and takes its rows ``[r B/D, (r + 1) B/D)``.
-    The loss is the reference's over the global batch, ``sum(nll) /
-    sum(mask)``: each rank divides its rows' ``sum(nll)`` by the mask count
-    all-reduced over the ranks, so the ranks' losses and gradients sum to
-    the global ones whatever each rank's share of labels. The gradients
-    are summed across the ranks in float32 (``psum_grads``) and rounded
-    back to the parameters' dtype (bf16) before AdamW, which every rank
-    runs on its replica; the returned loss is the global one. The MoE's
-    load-balance term is a function of the whole batch's routing, not a
-    sum over ranks: with ``data > 1`` the moe family is refused."""
-    data = data_parallel_size(mesh)
-    if data > 1 and cfg.family == "moe":
-        raise NotImplementedError(
-            "data parallelism for the moe family: its load-balance loss "
-            "needs the router statistics all-reduced across ranks, "
-            "ROADMAP queue 1 D.2")
+    On a process-group mesh of D data ranks (pod x data) every rank is
+    given the same global batch and takes its block of rows. The loss is
+    the reference's over the global batch, ``sum(nll) / sum(mask)``: each
+    rank divides its rows' ``sum(nll)`` by the mask count all-reduced over
+    the data ranks, so the ranks' losses and gradients sum to the global
+    ones whatever each rank's share of labels; the MoE's load-balance term
+    is each rank's share of the whole batch's (``models.moe``). The
+    gradients are summed over the data ranks only, in float32
+    (``psum_grads``), and rounded back to the parameters' dtype (bf16)
+    before AdamW, which every rank runs on its slices. A model axis
+    needs no sum: the tensor-parallel operators leave a replicated leaf's
+    gradient whole on every model rank and a sliced leaf's on its own.
+    The returned loss is the global one."""
+    check_mesh(cfg, mesh)
+    dp = data_ranks(mesh)
     opt = optimizer or AdamW()
 
     def train_step(params, opt_state, batch):
         params.requires_grad_(True)
         named = list(params.named_parameters())
         count = None
-        if data > 1:
-            rank = mesh.coords[mesh.axis_names.index("data")]
-            b = batch["tokens"].shape[0]
-            if b % data:
-                raise ValueError(f"a global batch of {b} rows does not "
-                                 f"split over {data} ranks")
-            rows = slice(rank * (b // data), (rank + 1) * (b // data))
+        if dp is not None:
+            rows = dp.rows(batch["tokens"].shape[0])
             batch = {k: v[rows] for k, v in batch.items()}
             dev = named[0][1].device
             labels = torch.as_tensor(batch["labels"], device=dev)
-            count = mesh.psum((labels >= 0).sum()[None], "data")
+            count = dp.psum((labels >= 0).sum())
         loss = M.loss_fn(cfg, params, batch, remat=remat, opts=opts,
-                         label_count=count)
+                         label_count=count, mesh=mesh)
         grads = torch.autograd.grad(loss, [p for _, p in named])
         loss = loss.detach()
-        if data > 1:
-            psum_grads(list(grads), mesh)
-            loss = mesh.psum(loss[None], "data")
+        if dp is not None:
+            psum_grads(list(grads), dp)
+            loss = dp.psum(loss)
         opt_state = opt.update({n: g for (n, _), g in zip(named, grads)},
                                opt_state, params)
         return params, opt_state, loss
@@ -142,13 +136,20 @@ def build_train_step(cfg: ModelConfig, mesh=None, *,
 
 def build_prefill_step(cfg: ModelConfig, mesh=None, *,
                        opts: dict | None = None):
-    """Inference prefill: forward logits only (no gradients)."""
-    check_one_device(mesh)
+    """Inference prefill: forward logits only (no gradients). On a
+    process-group mesh each data rank runs its rows and the logits come
+    back whole (the ranks' rows and vocab blocks gathered)."""
+    check_mesh(cfg, mesh)
+    dp = data_ranks(mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = M.forward(cfg, params, batch, remat=False, opts=opts)
-        return logits
+        if dp is not None:
+            rows = dp.rows(batch["tokens"].shape[0])
+            batch = {k: v[rows] for k, v in batch.items()}
+        logits, _ = M.forward(cfg, params, batch, remat=False, opts=opts,
+                              mesh=mesh)
+        return logits if dp is None else dp.cat(logits)
 
     return prefill_step, dict(params=M.abstract_params(cfg))
 
@@ -157,12 +158,19 @@ def build_serve_step(cfg: ModelConfig, mesh=None, *,
                      opts: dict | None = None):
     """One decode step: ``serve_step(params, cache, token) -> (logits,
     cache)``, the cache written in place. ``opts`` is the reference's
-    (``decode_cache_in_carry`` only changes its compiled program)."""
-    check_one_device(mesh)
+    (``decode_cache_in_carry`` only changes its compiled program). On a
+    process-group mesh the cache is this rank's
+    (``models.model.init_cache(..., mesh=mesh)``), ``token`` the global
+    batch's [B, 1], and the logits come back whole."""
+    check_mesh(cfg, mesh)
+    dp = data_ranks(mesh)
     del opts
 
     @torch.no_grad()
     def serve_step(params, cache, token):
-        return M.decode_step(cfg, params, cache, token)
+        if dp is not None:
+            token = token[dp.rows(token.shape[0])]
+        logits, cache = M.decode_step(cfg, params, cache, token, mesh)
+        return (logits if dp is None else dp.cat(logits)), cache
 
     return serve_step, dict(params=M.abstract_params(cfg))

@@ -14,6 +14,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.tensor_parallel import (copy_to_model,
+                                                     reduce_from_model)
+
 F32 = torch.float32
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
@@ -137,20 +140,30 @@ def _act(name: str, x):
     raise KeyError(name)
 
 
-def gated_mlp(params, x, act: str = "silu"):
-    """SwiGLU (act=silu) / GeGLU (act=gelu): (act(x W_g) * x W_u) W_d."""
-    g = dot_f32(x, params.wg)
-    u = dot_f32(x, params.wu)
+def gated_mlp(params, x, act: str = "silu", mp=None):
+    """SwiGLU (act=silu) / GeGLU (act=gelu): (act(x W_g) * x W_u) W_d.
+
+    With ``mp`` (a ``tensor_parallel.ModelParallel`` whose MLP is split)
+    the rank holds a column block of W_g / W_u and the row block of W_d:
+    its float32 share of the last product is summed over the model axis
+    before the one rounding."""
+    mp = mp if mp is not None and mp.mlp else None
+    x_in = copy_to_model(x, mp)
+    g = dot_f32(x_in, params.wg)
+    u = dot_f32(x_in, params.wu)
     h = (_act(act, g) * u).to(x.dtype)
-    return dot_f32(h, params.wd).to(x.dtype)
+    return reduce_from_model(dot_f32(h, params.wd), mp).to(x.dtype)
 
 
-def dense_mlp(params, x, act: str = "gelu"):
-    h = dot_f32(x, params.w1)
+def dense_mlp(params, x, act: str = "gelu", mp=None):
+    """act(x W_1 + b_1) W_2 + b_2; with ``mp`` as :func:`gated_mlp`, the
+    replicated b_2 added once, after the sum."""
+    mp = mp if mp is not None and mp.mlp else None
+    h = dot_f32(copy_to_model(x, mp), params.w1)
     if getattr(params, "b1", None) is not None:
         h = h + params.b1
     h = _act(act, h).to(x.dtype)
-    o = dot_f32(h, params.w2)
+    o = reduce_from_model(dot_f32(h, params.w2), mp)
     if getattr(params, "b2", None) is not None:
         o = o + params.b2
     return o.to(x.dtype)
@@ -389,22 +402,53 @@ def decode_attention(q, k_cache, v_cache, cache_len, window: int = 0):
 
 
 # ---------------------------------------------------------- projections ---
-def qkv_project(params, x, num_heads, num_kv_heads, head_dim):
+def qkv_project(params, x, num_heads, num_kv_heads, head_dim, mp=None):
     """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd]; the bias is added in
-    float32, before the one rounding."""
+    float32, before the one rounding.
+
+    With ``mp`` (a ``tensor_parallel.ModelParallel`` whose q heads are
+    split) q holds the rank's H / m heads, and k / v its KV / m kv heads
+    where the rules split them; where they do not, k / v hold every kv
+    head, each computed whole on every rank, and their gradient (each rank
+    holds the share of its own q heads) is summed over the model axis
+    before it reaches the replicated W_k / W_v."""
     b, s, _ = x.shape
-    q = dot_f32(x, params.wq)
-    k = dot_f32(x, params.wk)
-    v = dot_f32(x, params.wv)
+    heads = mp is not None and mp.heads
+    x_in = copy_to_model(x, mp if heads else None)
+    x_kv = x_in if heads and mp.kv else x
+    q = dot_f32(x_in, params.wq)
+    k = dot_f32(x_kv, params.wk)
+    v = dot_f32(x_kv, params.wv)
     if getattr(params, "bq", None) is not None:
         q = q + params.bq
         k = k + params.bk
         v = v + params.bv
-    return (q.reshape(b, s, num_heads, head_dim).to(x.dtype),
-            k.reshape(b, s, num_kv_heads, head_dim).to(x.dtype),
-            v.reshape(b, s, num_kv_heads, head_dim).to(x.dtype))
+    if heads and not mp.kv:
+        k, v = copy_to_model(k, mp), copy_to_model(v, mp)
+    return (q.reshape(b, s, -1, head_dim).to(x.dtype),
+            k.reshape(b, s, -1, head_dim).to(x.dtype),
+            v.reshape(b, s, -1, head_dim).to(x.dtype))
 
 
-def out_project(params, o):
+def out_project(params, o, mp=None):
+    """o [B,S,H,hd] @ W_o; with ``mp`` whose q heads are split, the rank's
+    float32 share of the product (its heads' rows of W_o) summed over the
+    model axis before the one rounding."""
     b, s, h, hd = o.shape
-    return dot_f32(o.reshape(b, s, h * hd), params.wo).to(o.dtype)
+    y = dot_f32(o.reshape(b, s, h * hd), params.wo)
+    if mp is not None and mp.heads:
+        y = reduce_from_model(y, mp)
+    return y.to(o.dtype)
+
+
+def kv_for_heads(k: torch.Tensor, mp) -> torch.Tensor:
+    """The kv heads (dim -2 of k [..., KV', hd]) that the rank's q heads
+    read, in the grouped-query layout the attention takes: a narrow of
+    ``k`` where the local q heads read a run of them in equal groups, else
+    one kv head a q head (``index_select``)."""
+    if mp is None:
+        return k
+    block = mp.kv_block()
+    if block is not None:
+        return k.narrow(-2, *block)
+    return k.index_select(-2, torch.tensor(mp.kv_of, device=k.device))

@@ -25,6 +25,11 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.tensor_parallel import (ModelParallel,
+                                                     check_tensor_parallel,
+                                                     data_ranks, model_axis,
+                                                     vocab_parallel_nll)
 from repro_torch.models import encdec, transformer
 
 
@@ -32,8 +37,54 @@ def _mod(cfg: ModelConfig):
     return encdec if cfg.family == "encdec" else transformer
 
 
-def init_params(cfg: ModelConfig, rng=0, device=None) -> nn.Module:
-    return _mod(cfg).init_params(cfg, rng, device)
+def init_params(cfg: ModelConfig, rng=0, device=None, mesh=None
+                ) -> nn.Module:
+    """Seeded parameters on ``device``; on a mesh with a ``model`` axis
+    larger than 1, this rank's slices (:func:`shard`) of the one process's
+    draws, so that every mesh starts from the same model."""
+    return shard(cfg, _mod(cfg).init_params(cfg, rng, device), mesh)
+
+
+def shard(cfg: ModelConfig, params: nn.Module, mesh) -> nn.Module:
+    """``params`` (the whole model) cut to this rank's slices in place:
+    every parameter the rules (``distributed.sharding.param_specs``) split
+    over ``model`` becomes its slice (``shard_leaf``), and the module keeps
+    the rank's :class:`~repro_torch.distributed.tensor_parallel.
+    ModelParallel` as ``params.mp``. A mesh without a ``model`` axis larger
+    than 1 leaves the module whole."""
+    check_tensor_parallel(cfg, mesh)
+    if model_axis(mesh) == 1:
+        return params
+    specs = sh.param_specs(cfg, mesh)
+    for name, p in list(params.named_parameters()):
+        if sh.on_axis(specs[name]):
+            _set(params, name, nn.Parameter(
+                sh.shard_leaf(p.detach(), specs[name], mesh),
+                requires_grad=p.requires_grad))
+    params.mp = ModelParallel(cfg, mesh, specs)
+    return params
+
+
+def _set(module: nn.Module, name: str, p: nn.Parameter) -> None:
+    owner, _, leaf = name.rpartition(".")
+    setattr(module.get_submodule(owner) if owner else module, leaf, p)
+
+
+def whole(params: nn.Module, named=None):
+    """(name, whole tensor) for each of ``named`` ((name, tensor) pairs of
+    this rank's slices, by parameter name: ``params.named_parameters()``
+    unless given, or the optimizer's moments), the sliced ones gathered
+    over the model axis (``gather_leaf``; every model rank must call it, in
+    the same order)."""
+    named = params.named_parameters() if named is None else named
+    mp = getattr(params, "mp", None)
+    if mp is None:
+        yield from named
+        return
+    for name, t in named:
+        spec = mp.specs[name]
+        yield name, (sh.gather_leaf(t.detach(), spec, mp.mesh)
+                     if sh.on_axis(spec) else t)
 
 
 def abstract_params(cfg: ModelConfig) -> nn.Module:
@@ -46,33 +97,51 @@ def needs_frontend(cfg: ModelConfig) -> bool:
 
 
 def forward(cfg: ModelConfig, params, batch, *, remat: bool = True,
-            opts: dict | None = None):
+            opts: dict | None = None, mesh=None, vocab_block: bool = False):
+    """(logits, aux). On a process-group ``mesh`` (dense and moe) the batch
+    is this rank's rows; ``vocab_block`` (with the vocabulary split over
+    the model axis) keeps the rank's block of the logits
+    (``transformer.forward``)."""
     if cfg.family == "encdec":
         return encdec.forward(cfg, params, batch["tokens"],
                               frontend_embeds=batch["frontend_embeds"],
                               remat=remat)
     return transformer.forward(cfg, params, batch["tokens"],
                                frontend_embeds=batch.get("frontend_embeds"),
-                               remat=remat, opts=opts)
+                               remat=remat, opts=opts, mesh=mesh,
+                               vocab_block=vocab_block)
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True,
             aux_weight: float = 0.01, opts: dict | None = None,
-            label_count: torch.Tensor | None = None):
+            label_count: torch.Tensor | None = None, mesh=None):
     """Mean next-token cross entropy over the labels >= 0, plus
     ``aux_weight`` times the MoE's load-balance loss: the log-sum-exp of
     the float32 logits less the label's logit. The label's logit is
     gathered, which is exact: it is the value the reference's one-hot sum
     adds to zeros. ``label_count`` replaces the denominator (this batch's
     count of labels >= 0): a data-parallel rank passes the global batch's,
-    so the ranks' losses sum to the global batch's mean."""
-    logits, aux = forward(cfg, params, batch, remat=remat, opts=opts)
+    so the ranks' losses sum to the global batch's mean.
+
+    On a process-group ``mesh`` the batch is this rank's rows and the
+    load-balance term the rank's share of the whole batch's
+    (``moe.moe_ffn``); with the vocabulary split over the model axis the
+    cross entropy is ``tensor_parallel.vocab_parallel_nll`` of the rank's
+    vocab block."""
+    mp = getattr(params, "mp", None)
+    split = mp is not None and mp.vocab
+    logits, aux = forward(cfg, params, batch, remat=remat, opts=opts,
+                          mesh=mesh, vocab_block=split)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = labels >= 0
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
-    nll = torch.where(mask, lse - picked, 0.0)
+    if split:
+        nll = torch.where(mask, vocab_parallel_nll(logits, labels, mp), 0.0)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              labels.clamp(min=0)[..., None])[..., 0]
+        nll = torch.where(mask, lse - picked, 0.0)
     count = mask.sum() if label_count is None else label_count
     loss = nll.sum() / count.clamp(min=1)
     return loss + aux_weight * aux
@@ -99,12 +168,24 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, rng=None,
     return out
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    return _mod(cfg).init_cache(cfg, batch, max_seq, device)
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
+               mesh=None):
+    """The decode cache; on a process-group ``mesh`` this rank's part of a
+    cache of ``batch`` global rows (``transformer.init_cache``)."""
+    if cfg.family != "encdec":
+        return transformer.init_cache(cfg, batch, max_seq, device, mesh)
+    check_tensor_parallel(cfg, mesh)
+    dp = data_ranks(mesh)
+    rows = slice(0, batch) if dp is None else dp.rows(batch)
+    return encdec.init_cache(cfg, rows.stop - rows.start, max_seq, device)
 
 
-def decode_step(cfg: ModelConfig, params, cache, token):
-    return _mod(cfg).decode_step(cfg, params, cache, token)
+def decode_step(cfg: ModelConfig, params, cache, token, mesh=None):
+    """One decode step; on a process-group ``mesh`` the token and the cache
+    are this rank's rows (``transformer.decode_step``)."""
+    if cfg.family == "encdec":
+        return encdec.decode_step(cfg, params, cache, token)
+    return transformer.decode_step(cfg, params, cache, token, mesh)
 
 
 # ------------------------------------------------------ host carriers ---
@@ -187,17 +268,19 @@ def unstack(cfg: ModelConfig, host_tree: dict, dtype=None) -> dict:
     return got
 
 
-def from_host(cfg: ModelConfig, host_params: dict, device=None) -> nn.Module:
+def from_host(cfg: ModelConfig, host_params: dict, device=None,
+              mesh=None) -> nn.Module:
     """The port's parameters on ``device`` (``cuda`` unless given) from the
     reference's params pytree as numpy arrays (or tensors), split by
-    :func:`unstack`. The parameters have ``requires_grad=False``."""
+    :func:`unstack`; on a mesh with a ``model`` axis, this rank's slices
+    (:func:`shard`). The parameters have ``requires_grad=False``."""
+    check_tensor_parallel(cfg, mesh)
     device = resolve_device(device)
     module = abstract_params(cfg)
     for name, t in unstack(cfg, host_params).items():
-        owner, _, leaf = name.rpartition(".")
-        setattr(module.get_submodule(owner), leaf, nn.Parameter(
-            t.to(device, copy=True).contiguous(), requires_grad=False))
-    return module
+        _set(module, name, nn.Parameter(t.to(device, copy=True).contiguous(),
+                                        requires_grad=False))
+    return shard(cfg, module, mesh)
 
 
 def stack(named) -> dict:
@@ -205,7 +288,8 @@ def stack(named) -> dict:
     ``named_parameters()``, or the optimizer's moments by parameter name)
     as the reference's tree of host tensors, each stack's tensors (the
     numeric names after its first key) stacked on leading axes. Every
-    tensor is a copy on the CPU."""
+    tensor is a copy on the CPU (``meta`` tensors stay on ``meta``: a
+    tree of shapes and dtypes)."""
     stacks: dict[tuple, dict[tuple, torch.Tensor]] = {}
     for name, p in named:
         path = tuple(name.split("."))
@@ -219,9 +303,13 @@ def stack(named) -> dict:
     for path, parts in stacks.items():
         shape = tuple(max(i[a] for i in parts) + 1
                       for a in range(len(next(iter(parts)))))
-        arr = (parts[()].to("cpu", copy=True) if not shape else
-               torch.stack([parts[i] for i in np.ndindex(*shape)]).reshape(
-                   shape + parts[(0,) * len(shape)].shape).cpu())
+        if shape:
+            arr = torch.stack([parts[i] for i in np.ndindex(*shape)]
+                              ).reshape(shape + parts[(0,) * len(shape)].shape)
+            arr = arr if arr.is_meta else arr.cpu()
+        else:
+            arr = parts[()]
+            arr = arr if arr.is_meta else arr.to("cpu", copy=True)
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
@@ -231,8 +319,9 @@ def stack(named) -> dict:
 
 def to_host(params: nn.Module) -> dict:
     """The inverse of :func:`from_host`: the reference's params pytree as
-    numpy arrays (:func:`stack` of the parameters)."""
-    return _map(_array, stack(params.named_parameters()))
+    numpy arrays (:func:`stack` of the parameters), whole: a rank's slices
+    are gathered over the model axis (:func:`whole`)."""
+    return _map(_array, stack(whole(params)))
 
 
 def _map(fn, tree: dict) -> dict:

@@ -33,6 +33,15 @@ drops other pairs) and ``attn_block_dtype``. Its other XLA knobs
 ``shard_attn_heads``, ``decode_cache_in_carry``) change the compiled
 program, not the result, and have no counterpart: fully masked future kv
 chunks are always skipped.
+
+Over a process-group mesh (dense and moe) a rank's module holds its slices
+(``models.model.shard``, ``DecoderLM.mp``) and the layers run Megatron's
+tensor parallelism with ``distributed.tensor_parallel``'s operators: the
+vocabulary-parallel embedding and head, the rank's q heads (and kv heads
+where the rules split them), row-parallel output projections and MLPs
+summed in float32 before their one rounding, and the MoE's experts
+(``models.moe``). The forward, loss and decode steps take the rank's rows
+of the batch; ``mesh`` makes the MoE's routing the whole batch's.
 """
 from __future__ import annotations
 
@@ -43,6 +52,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tensor_parallel import (check_tensor_parallel,
+                                                     copy_to_model,
+                                                     data_ranks,
+                                                     gather_from_model,
+                                                     model_axis,
+                                                     reduce_from_model)
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.rglru import recurrent_block
@@ -240,7 +255,11 @@ def _hybrid_tail(cfg: ModelConfig) -> list[str]:
 
 
 class DecoderLM(nn.Module):
-    """A decoder's parameters (the reference's params pytree)."""
+    """A decoder's parameters (the reference's params pytree). ``mp`` is
+    the rank's ``tensor_parallel.ModelParallel`` where the module holds a
+    rank's slices (``models.model.shard``), else None."""
+
+    mp = None
 
     def __init__(self, cfg: ModelConfig, init: _Init):
         super().__init__()
@@ -304,20 +323,37 @@ def _embed(cfg: ModelConfig, params: DecoderLM, tokens,
            scale: bool = True) -> torch.Tensor:
     """Token embeddings in ``cfg.dtype``; tied ones (when ``scale``) times
     sqrt(d_model) rounded to that dtype first, as the reference's
-    ``x * jnp.asarray(d_model ** 0.5, dt)`` (39.25 for 1 536 in bf16)."""
+    ``x * jnp.asarray(d_model ** 0.5, dt)`` (39.25 for 1 536 in bf16).
+
+    With the vocabulary split over the model axis a rank holds the rows of
+    its block: a token outside it looks up zeros, and the ranks' lookups
+    are summed, which adds one row to zeros, so it is exact."""
     dt = torch_dtype(cfg)
     tokens = torch.as_tensor(tokens, device=params.device).long()
-    x = params.embed[tokens].to(dt)
+    mp = params.mp
+    if mp is not None and mp.vocab:
+        vl = params.embed.shape[0]
+        local = tokens - mp.index * vl
+        mine = (local >= 0) & (local < vl)
+        x = torch.where(mine[..., None],
+                        params.embed[local.clamp(0, vl - 1)], 0)
+        x = reduce_from_model(x, mp).to(dt)
+    else:
+        x = params.embed[tokens].to(dt)
     if scale and cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     return x
 
 
 def _self_attn(blk: Block, x, positions, cfg: ModelConfig, window: int = 0,
-               decode=None, opts: dict | None = None):
+               decode=None, opts: dict | None = None, mp=None):
+    """x plus self-attention on its norm. With ``mp`` the rank attends with
+    its q heads (``qkv_project``), each reading the kv head of its global
+    index (``kv_for_heads``), and the output projection is summed over the
+    model axis (``out_project``)."""
     h = L.rms_norm(x, blk.norm1, cfg.norm_eps)
     q, k, v = L.qkv_project(blk.attn, h, cfg.num_heads, cfg.num_kv_heads,
-                            cfg.resolved_head_dim)
+                            cfg.resolved_head_dim, mp)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if decode is not None:
@@ -329,6 +365,8 @@ def _self_attn(blk: Block, x, positions, cfg: ModelConfig, window: int = 0,
         bidx = torch.arange(k.shape[0], device=k.device)
         k_cache[bidx, idx] = k[:, 0]
         v_cache[bidx, idx] = v[:, 0]
+        k_cache = L.kv_for_heads(k_cache, mp)
+        v_cache = L.kv_for_heads(v_cache, mp)
         if window and size <= window:
             # the ring holds exactly the window: every written entry counts
             o = L.decode_attention(q, k_cache, v_cache,
@@ -336,15 +374,18 @@ def _self_attn(blk: Block, x, positions, cfg: ModelConfig, window: int = 0,
         else:
             o = L.decode_attention(q, k_cache, v_cache, cache_len + 1,
                                    window=window)
-        return x + L.out_project(blk.attn, o)
-    o = L.attention(q, k, v, q_offset=0, causal=True, window=window,
+        return x + L.out_project(blk.attn, o, mp)
+    o = L.attention(q, L.kv_for_heads(k, mp), L.kv_for_heads(v, mp),
+                    q_offset=0, causal=True, window=window,
                     block_dtype=(opts or {}).get("attn_block_dtype",
                                                  "float32"))
-    return x + L.out_project(blk.attn, o)
+    return x + L.out_project(blk.attn, o, mp)
 
 
-def _ffn(blk, x, cfg: ModelConfig, opts: dict | None = None):
-    """x plus the block's MLP (or experts) on its norm; returns (x, aux)."""
+def _ffn(blk, x, cfg: ModelConfig, opts: dict | None = None, mp=None,
+         dp=None):
+    """x plus the block's MLP (or experts) on its norm; returns (x, aux).
+    ``mp`` / ``dp``: the model and data ranks (``moe.moe_ffn``)."""
     h = L.rms_norm(x, blk.norm2, cfg.norm_eps)
     moe = getattr(blk, "moe", None)
     if moe is not None:
@@ -352,11 +393,12 @@ def _ffn(blk, x, cfg: ModelConfig, opts: dict | None = None):
                          experts_per_token=cfg.experts_per_token,
                          capacity_factor=cfg.capacity_factor,
                          act=cfg.mlp_act,
-                         impl=(opts or {}).get("moe_impl", "sort"))
+                         impl=(opts or {}).get("moe_impl", "sort"),
+                         mp=mp, dp=dp)
         return x + y, aux
     if cfg.mlp_act == "gelu_mlp":
-        return x + L.dense_mlp(blk.mlp, h, "gelu"), 0.0
-    return x + L.gated_mlp(blk.mlp, h, cfg.mlp_act), 0.0
+        return x + L.dense_mlp(blk.mlp, h, "gelu", mp), 0.0
+    return x + L.gated_mlp(blk.mlp, h, cfg.mlp_act, mp), 0.0
 
 
 def _gated(blk: CrossBlock, x, o):
@@ -411,9 +453,18 @@ def _hybrid_blocks(cfg: ModelConfig, params: DecoderLM):
         yield c, getattr(params, f"tail{i}"), f"tail{i}"
 
 
-def _logits(cfg: ModelConfig, params: DecoderLM, x) -> torch.Tensor:
+def _logits(cfg: ModelConfig, params: DecoderLM, x,
+            vocab_block: bool = False) -> torch.Tensor:
+    """Float32 logits [..., V]. With the vocabulary split over the model
+    axis the rank's head is its vocab block (a tied embedding's rows are
+    the same block): ``vocab_block`` returns that block [..., V / m], else
+    the blocks are gathered whole."""
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    return L.dot_f32(x, params.head())
+    mp = params.mp
+    if mp is None or not mp.vocab:
+        return L.dot_f32(x, params.head())
+    y = L.dot_f32(copy_to_model(x, mp), params.head())
+    return y if vocab_block else gather_from_model(y, mp)
 
 
 def _remat(fn, remat: bool, params: nn.Module):
@@ -429,23 +480,31 @@ def _remat(fn, remat: bool, params: nn.Module):
 
 def forward(cfg: ModelConfig, params: DecoderLM, tokens,
             frontend_embeds=None, *, remat: bool = True,
-            opts: dict | None = None):
+            opts: dict | None = None, mesh=None, vocab_block: bool = False):
     """Token logits for train / prefill. tokens [B, S] -> logits [B, S, V]
     float32; vlm attends to ``frontend_embeds`` [B, T, D].
 
     Returns (logits, aux_loss): moe's summed Switch losses (float32), 0.0
     for the other families. ``remat`` recomputes each block (vlm's and
     hybrid's superblocks; hybrid's tail blocks are not, as in the
-    reference) in the backward."""
+    reference) in the backward; the recomputation reissues the block's
+    collectives, in the same order on every rank.
+
+    On a process-group ``mesh`` the tokens are this rank's rows of the
+    global batch; the module holds the rank's slices (``params.mp``), and
+    ``mesh``'s data ranks make the MoE's routing a function of the whole
+    batch (``moe.moe_ffn``). ``vocab_block``: the rank's vocab block of
+    the logits, not the whole (:func:`_logits`)."""
     fam = cfg.family
+    mp, dp = params.mp, data_ranks(mesh)
     x = _embed(cfg, params, tokens, scale=fam in FORWARD_SCALED)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     auxs = []
     if fam in ("dense", "moe"):
         def blk_fn(x, blk):
-            x = _self_attn(blk, x, positions, cfg, opts=opts)
-            return _ffn(blk, x, cfg, opts)
+            x = _self_attn(blk, x, positions, cfg, opts=opts, mp=mp)
+            return _ffn(blk, x, cfg, opts, mp, dp)
 
         blk_fn = _remat(blk_fn, remat, params)
         for blk in params.blocks:
@@ -492,20 +551,35 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens,
         for blk in params.blocks:
             x = blk_fn(x, blk)
     aux = torch.stack(auxs).sum() if fam == "moe" else 0.0
-    return _logits(cfg, params, x), aux
+    return _logits(cfg, params, x, vocab_block), aux
 
 
 # ================================================================= decode ===
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device=None) -> dict:
+               device=None, mesh=None) -> dict:
     """The decode cache on ``device`` (``cuda`` unless given): the
     reference's ``init_cache`` layout for ``cfg.family``, zeros, with
     ``cache_len`` int32[B]. vlm's ``cross_k`` / ``cross_v`` [n_super, B, T,
-    KV, hd] hold T = ``cfg.num_frontend_tokens``."""
+    KV, hd] hold T = ``cfg.num_frontend_tokens``.
+
+    On a process-group ``mesh``: this rank's part of a cache of ``batch``
+    global rows, its rows over the data ranks and its kv heads where the
+    rules split them over the model axis. Where the kv heads do not divide
+    the axis the reference splits the cache's sequence instead
+    (``sharding.cache_spec_tree``); here each rank holds every kv head, the
+    same function at more memory."""
     device = resolve_device(device)
     dt = torch_dtype(cfg)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     fam = cfg.family
+    dp = data_ranks(mesh)
+    if dp is not None:
+        rows = dp.rows(batch)
+        batch = rows.stop - rows.start
+    check_tensor_parallel(cfg, mesh)
+    m = model_axis(mesh)
+    if m > 1 and kv % m == 0:
+        kv //= m
 
     def zeros(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -563,22 +637,27 @@ def _write_state(views, new) -> None:
         view.copy_(value)
 
 
-def decode_step(cfg: ModelConfig, params: DecoderLM, cache: dict, token):
+def decode_step(cfg: ModelConfig, params: DecoderLM, cache: dict, token,
+                mesh=None):
     """One decode step. token [B, 1] -> (logits [B, 1, V], cache).
 
     The new token's k / v and recurrent states are written into the
     cache's tensors in place (no copy of the cache a step); the returned
     dict holds them and ``cache_len + 1``. A tied embedding is scaled for
-    every family, as the reference's decode does."""
+    every family, as the reference's decode does. On a process-group
+    ``mesh`` the token and the cache are this rank's rows (as
+    :func:`forward`'s); the logits are whole over the vocabulary."""
     fam = cfg.family
+    mp, dp = params.mp, data_ranks(mesh)
     x = _embed(cfg, params, token)
     cache_len = cache["cache_len"]
     positions = cache_len[:, None]
     if fam in ("dense", "moe"):
         for i, blk in enumerate(params.blocks):
             x = _self_attn(blk, x, positions, cfg,
-                           decode=(cache["k"][i], cache["v"][i], cache_len))
-            x, _ = _ffn(blk, x, cfg)
+                           decode=(cache["k"][i], cache["v"][i], cache_len),
+                           mp=mp)
+            x, _ = _ffn(blk, x, cfg, mp=mp, dp=dp)
     elif fam == "vlm":
         b = x.shape[0]
         for s, (selfs, cross) in enumerate(zip(params.blocks,

@@ -14,13 +14,17 @@ monitor:
 
 Parameters are made by the port's seeded init (``seed``) on ``device``
 (``cuda`` unless given). ``mesh`` is None, a mesh of one device, or a
-``(data, 1)`` process-group mesh (``compat.make_process_mesh``): every
-rank then draws the same ``SyntheticLM`` global batch and the train step
-takes its rows; rank 0 writes the checkpoints and logs, and every rank
-restores them (a barrier after each save completes, so no rank reads a
-step before it is whole). A fault must reach every rank at the same step
-(``fault_hook`` is called on each), as the collectives of a step are
-entered by all ranks or none.
+process-group mesh of axes ``(data, model)`` or ``(pod, data, model)``
+(``compat.make_process_mesh``): every rank then draws the same
+``SyntheticLM`` global batch and the train step takes its rows; each rank
+holds its slices of the one process's seeded parameters over ``model``
+(``models.model.init_params(..., mesh)``). Rank 0 writes the checkpoints
+and logs, in the reference's format: the parameters and moments are
+gathered whole over the model axis first (every model rank joins), and a
+restore gives each rank its slices again. Every rank restores (a barrier
+after each save completes, so no rank reads a step before it is whole). A
+fault must reach every rank at the same step (``fault_hook`` is called on
+each), as the collectives of a step are entered by all ranks or none.
 """
 from __future__ import annotations
 
@@ -32,12 +36,15 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.compat import ProcessGroupMesh
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.steps import build_train_step, data_parallel_size
+from repro_torch.distributed.tensor_parallel import model_axis
+from repro_torch.launch.steps import build_train_step
 from repro_torch.models import model as M
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import Prefetcher, SyntheticLM
-from repro_torch.train.optimizer import (AdamW, opt_state_from_host,
+from repro_torch.train.optimizer import (AdamW, AdamWState,
+                                         opt_state_from_host,
                                          opt_state_to_host)
 
 
@@ -62,9 +69,14 @@ def train(cfg: ModelConfig, mesh=None, *, steps: int, global_batch: int,
     ``step_s``: the batch's wait, the step and the loss read back)."""
     device = resolve_device(device)
     opt = optimizer or AdamW(lr=1e-3)
-    step_fn, _ = build_train_step(cfg, mesh, optimizer=opt)
-    ranks = data_parallel_size(mesh)
+    step_fn, aparams = build_train_step(cfg, mesh, optimizer=opt)
+    ranks = mesh.size if isinstance(mesh, ProcessGroupMesh) else 1
     leader = ranks == 1 or mesh.rank == 0
+    # the checkpoints' trees: shapes and dtypes, on meta
+    like = M.stack(aparams["params"].named_parameters())
+    moments = M._map(lambda t: t.to(torch.float32), like)
+    opt_like = AdamWState(step=np.zeros((), np.int32), mu=moments,
+                          nu=moments)
 
     def settle():
         """Rank 0's checkpoint writes finished, seen by every rank."""
@@ -74,17 +86,25 @@ def train(cfg: ModelConfig, mesh=None, *, steps: int, global_batch: int,
             mesh.barrier()
 
     def fresh_state():
-        params = M.init_params(cfg, seed, device).requires_grad_(True)
+        params = M.init_params(cfg, seed, device, mesh).requires_grad_(True)
         return params, opt.init(params)
 
     def restored(last):
-        params, opt_state = fresh_state()
-        tree = ckpt.restore(ckpt_dir, last,
-                            M.stack(params.named_parameters()))
-        params = M.from_host(cfg, tree, device).requires_grad_(True)
-        host = ckpt.restore(ckpt_dir + "/opt", last,
-                            opt_state_to_host(opt_state))
-        return params, opt_state_from_host(cfg, host, device)
+        tree = ckpt.restore(ckpt_dir, last, like)
+        params = M.from_host(cfg, tree, device, mesh).requires_grad_(True)
+        host = ckpt.restore(ckpt_dir + "/opt", last, opt_like)
+        return params, opt_state_from_host(cfg, host, device, mesh)
+
+    def save(step):
+        """Rank 0 writes the step's checkpoint; where the ranks hold
+        slices, every rank first joins the gathers."""
+        if not (leader or model_axis(mesh) > 1):
+            return
+        tree = M.stack(M.whole(params))
+        opt_tree = opt_state_to_host(opt_state, params)
+        if leader:
+            saver.save(step, tree)
+            opt_saver.save(step, opt_tree)
 
     start = 0
     last = ckpt.latest_step(ckpt_dir)
@@ -129,9 +149,8 @@ def train(cfg: ModelConfig, mesh=None, *, steps: int, global_batch: int,
                     print(f"step {step:6d} loss {loss:.4f} {dt*1e3:.0f}ms",
                           flush=True)
                 step += 1
-                if leader and ckpt_every and step % ckpt_every == 0:
-                    saver.save(step, M.stack(params.named_parameters()))
-                    opt_saver.save(step, opt_state_to_host(opt_state))
+                if ckpt_every and step % ckpt_every == 0:
+                    save(step)
             except Exception as e:  # noqa: BLE001 — restart-from-checkpoint
                 restarts += 1
                 print(f"step {step} failed ({type(e).__name__}: {e}); "

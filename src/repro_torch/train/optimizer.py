@@ -3,7 +3,8 @@
 The state mirrors the parameters: float32 first and second moments ``mu`` /
 ``nu`` keyed by parameter name, and an int32 ``step`` on the parameters'
 device. The update follows the reference's arithmetic: the global-norm clip
-summed over every leaf, the moments and the step in float32, weight decay
+summed over every leaf (over a rank's slices and the model axis,
+:func:`global_sq_norm`), the moments and the step in float32, weight decay
 on every leaf, and the new parameter rounded once to its dtype. It runs
 leaf by leaf and in place (the parameters and the moments), so no float32
 copy of more than one leaf exists at a time: qwen2-1.5b's embedding alone
@@ -26,6 +27,8 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.tensor_parallel import MODEL, model_axis
 from repro_torch.models import model as M
 
 F32 = torch.float32
@@ -67,9 +70,8 @@ class AdamW:
         step = state.step + 1
         scale = None
         if self.grad_clip > 0:
-            gn = torch.sqrt(torch.stack(
-                [torch.sum(torch.square(g.to(F32))) for g in grads.values()])
-                .sum())
+            gn = torch.sqrt(global_sq_norm(grads, getattr(params, "mp",
+                                                          None)))
             scale = torch.clamp(self.grad_clip / (gn + 1e-9), max=1.0)
         b1, b2 = self.b1, self.b2
         stepf = step.to(F32)
@@ -91,6 +93,22 @@ class AdamW:
         return AdamWState(step=step, mu=state.mu, nu=state.nu)
 
 
+def global_sq_norm(grads: dict, mp=None) -> torch.Tensor:
+    """The squared norm of the whole gradient tree: on a rank that holds
+    slices (``mp``, a ``tensor_parallel.ModelParallel``), the sums of
+    squares of its sliced leaves summed over the model axis, and each
+    replicated leaf's counted once."""
+    sq = {n: torch.sum(torch.square(g.to(F32))) for n, g in grads.items()}
+    if mp is None:
+        return torch.stack(list(sq.values())).sum()
+    zero = torch.zeros((), dtype=F32, device=next(iter(sq.values())).device)
+    split = [v for n, v in sq.items() if sh.on_axis(mp.specs[n])]
+    whole = [v for n, v in sq.items() if not sh.on_axis(mp.specs[n])]
+    split = mp.mesh.psum(torch.stack(split).sum()[None] if split
+                         else zero[None], MODEL)
+    return split + (torch.stack(whole).sum() if whole else zero)
+
+
 def cosine_schedule(peak: float, warmup: int, total: int,
                     floor: float = 0.1):
     """Linear warmup to ``peak`` over ``warmup`` steps, then a cosine to
@@ -105,25 +123,39 @@ def cosine_schedule(peak: float, warmup: int, total: int,
     return lr
 
 
-def opt_state_to_host(state: AdamWState) -> AdamWState:
+def opt_state_to_host(state: AdamWState, params: nn.Module | None = None
+                      ) -> AdamWState:
     """The reference's ``AdamWState`` as numpy: ``step`` int32 [], ``mu`` /
     ``nu`` the params pytree of float32 moments (stacked as
-    ``models.model.to_host`` stacks the parameters)."""
-    return AdamWState(step=state.step.cpu().numpy(),
-                      mu=M._map(M._array, M.stack(state.mu.items())),
-                      nu=M._map(M._array, M.stack(state.nu.items())))
+    ``models.model.to_host`` stacks the parameters). A rank's moments are
+    slices where its ``params`` are: they are gathered whole over the model
+    axis (``models.model.whole``; every model rank calls this)."""
+    def tree(moments):
+        named = moments.items() if params is None else M.whole(
+            params, moments.items())
+        return M._map(M._array, M.stack(named))
+
+    return AdamWState(step=state.step.cpu().numpy(), mu=tree(state.mu),
+                      nu=tree(state.nu))
 
 
 def opt_state_from_host(cfg: ModelConfig, host: AdamWState,
-                        device=None) -> AdamWState:
+                        device=None, mesh=None) -> AdamWState:
     """The port's state on ``device`` (``cuda`` unless given) from the
     reference's ``AdamWState`` (numpy arrays or tensors; a tuple of step,
-    mu and nu)."""
+    mu and nu); on a mesh with a ``model`` axis, this rank's slices of the
+    moments (``models.model.from_host``'s)."""
     device = resolve_device(device)
     step, mu, nu = host
+    specs = sh.param_specs(cfg, mesh) if model_axis(mesh) > 1 else None
+
+    def piece(k, t):
+        if specs is not None and sh.on_axis(specs[k]):
+            t = sh.shard_leaf(t, specs[k], mesh)
+        return t.to(device, copy=True).contiguous()
 
     def moments(tree):
-        return {k: t.to(device, copy=True).contiguous()
+        return {k: piece(k, t)
                 for k, t in M.unstack(cfg, tree, dtype=F32).items()}
 
     return AdamWState(

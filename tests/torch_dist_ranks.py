@@ -579,3 +579,199 @@ def serve_rank(rank: int, world: int, tmp: str) -> None:
         db.close()
     save(tmp, "serve", rank, **out)
     done()
+
+
+# --------------------------------------------------- tensor parallel ----
+#: the meshes of ``tests/test_torch_tensor_parallel.py``: tag -> (shape,
+#: axes); the 2-rank meshes are the first two ranks' (``sub``)
+TP_MESHES = {"1x2": ((1, 2), ("data", "model")),
+             "2x2": ((2, 2), ("data", "model")),
+             "1x4": ((1, 4), ("data", "model")),
+             "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+#: the MoE's meshes and dispatches
+TP_MOE = {"2x1_sort": ((2, 1), "sort"), "2x1_einsum": ((2, 1), "einsum"),
+          "1x2_sort": ((1, 2), "sort"), "1x2_einsum": ((1, 2), "einsum")}
+#: the reduced configs' vocabulary made even, so that it splits over m
+TP_VOCAB = 504
+TP_DECODE_STEPS = 4
+#: the capacity factor of the MoE's direct calls: these inputs drop pairs
+TP_MOE_CF = 0.5
+TP_LOOP_STEPS = 3
+
+
+def tp_config(arch: str):
+    """The port's reduced config of ``arch`` with :data:`TP_VOCAB`."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).reduced(),
+                               vocab_size=TP_VOCAB)
+
+
+def tp_optimizer(total: int = 12, warmup: int = 1):
+    from repro_torch.train import optimizer as O
+    return O.AdamW(lr=O.cosine_schedule(3e-3, warmup, total))
+
+
+def tp_steps(cfg, host: dict, batch: dict, mesh, opts=None,
+             device="cpu") -> dict:
+    """The prefill logits, :data:`TP_DECODE_STEPS` decode steps' logits
+    (the prompt's tokens fed one a step) and one AdamW step (its loss and
+    the updated parameters, gathered whole) of ``cfg`` on ``mesh`` (None:
+    one process) from the reference's parameters ``host``, on ``device``."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+
+    params = M.from_host(cfg, host, device=device, mesh=mesh)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    toks = batch["tokens"]
+    prefill, _ = S.build_prefill_step(cfg, mesh, opts=opts)
+    serve, _ = S.build_serve_step(cfg, mesh)
+    out = {"prefill": prefill(params, {"tokens": toks})}
+    cache = M.init_cache(cfg, toks.shape[0], TP_DECODE_STEPS, device=device,
+                         mesh=mesh)
+    dec = []
+    for t in range(TP_DECODE_STEPS):
+        logits, cache = serve(params, cache, toks[:, t:t + 1])
+        dec.append(logits)
+    out["decode"] = torch.cat(dec, 1)
+    opt = tp_optimizer()
+    step, _ = S.build_train_step(cfg, mesh, optimizer=opt, opts=opts)
+    params, _, loss = step(params, opt.init(params), batch)
+    out["loss"] = loss
+    for key, v in _flat(M.to_host(params)):
+        out["p/" + "/".join(key)] = (v.view(np.uint16)
+                                     if v.dtype.name == "bfloat16" else v)
+    return out
+
+
+class RouteRecorder:
+    """Records, for each MoE call, the experts ``moe.route`` picks and the
+    keep mask the dispatch uses (``moe.place``'s over data ranks, else
+    ``route``'s; ``group_ranks``'s for ``"einsum"``)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real = moe, (moe.route, moe.place, moe.group_ranks)
+        self.experts, self.keeps = [], []
+
+    def __enter__(self):
+        route, place, group = self.real
+
+        def rec_route(*a):
+            out = route(*a)
+            self.experts.append(out[2])
+            self.keeps.append(out[4])
+            return out
+
+        def rec_place(*a):
+            out = place(*a)
+            self.keeps[-1] = out[1]
+            return out
+
+        def rec_group(*a):
+            out = group(*a)
+            self.keeps[-1] = out[1]
+            return out
+
+        self.moe.route, self.moe.place, self.moe.group_ranks = (
+            rec_route, rec_place, rec_group)
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.place, self.moe.group_ranks = self.real
+
+
+def tp_moe(cfg, host: dict, batch: dict, x, mesh, impl: str) -> dict:
+    """The MoE on ``mesh`` (None: one process) with dispatch ``impl``: one
+    ``moe_ffn`` call of the first block on the rank's rows of ``x`` at
+    :data:`TP_MOE_CF` (its output, load-balance share, experts and keep
+    mask), and one train step's loss."""
+    from repro_torch.distributed.tensor_parallel import data_ranks
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    params = M.from_host(cfg, host, device="cpu", mesh=mesh)
+    dp = data_ranks(mesh)
+    xs = x if dp is None else x[dp.rows(x.shape[0])]
+    with RouteRecorder() as rec:
+        y, aux = moe.moe_ffn(params.blocks[0].moe, xs,
+                             num_experts=cfg.num_experts,
+                             experts_per_token=cfg.experts_per_token,
+                             capacity_factor=TP_MOE_CF, act=cfg.mlp_act,
+                             impl=impl, mp=params.mp, dp=dp)
+    opt = tp_optimizer()
+    step, _ = S.build_train_step(cfg, mesh, optimizer=opt,
+                                 opts={"moe_impl": impl})
+    _, _, loss = step(params, opt.init(params), batch)
+    return dict(y=y.float(), aux=aux, expert=rec.experts[0],
+                keep=rec.keeps[0], loss=loss)
+
+
+def tp_rank(rank: int, world: int, tmp: str) -> None:
+    """``tests/test_torch_tensor_parallel.py`` on one of 4 ranks: the
+    dense steps on each of :data:`TP_MESHES` (the rank 0 of each mesh
+    writes), the MoE on the first two ranks, then ``train.loop.train`` on
+    (2, 2) with a checkpoint each step and a fault at step 2 on every
+    rank. Inputs in ``<tmp>/tp_in.npz``; writes ``<tmp>/tp_<rank>.npz``."""
+    mesh4 = process_mesh(rank, world, tmp, "tp")
+    from repro_torch.train import loop
+
+    with np.load(os.path.join(tmp, "tp_in.npz")) as f:
+        arrays = dict(f)
+    out = {}
+    cfg = tp_config("qwen2-1.5b")
+    host = _tree(arrays, "p/")
+    batch = {k: torch.from_numpy(arrays["b/" + k]) for k in ("tokens",
+                                                              "labels")}
+    for tag, (shape, axes) in TP_MESHES.items():
+        mesh = mesh4.sub(int(np.prod(shape)), shape, axes)
+        if not mesh.member:
+            continue
+        res = tp_steps(cfg, host, batch, mesh)
+        if mesh.rank == 0:
+            out.update({f"{tag}/{k}": v for k, v in res.items()})
+    mcfg = tp_config("moonshot-v1-16b-a3b")
+    mhost = _tree(arrays, "q/")
+    x = torch.from_numpy(arrays["x"].view(np.int16)).view(torch.bfloat16)
+    for tag, (shape, impl) in TP_MOE.items():
+        mesh = mesh4.sub(2, shape, ("data", "model"))
+        if mesh.member:
+            res = tp_moe(mcfg, mhost, batch, x, mesh, impl)
+            out.update({f"{tag}/{k}": v for k, v in res.items()})
+    mesh22 = mesh4.sub(4, (2, 2), ("data", "model"))
+    fired = []
+
+    def hook(step):
+        if step == 2 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected fault")
+
+    rep = loop.train(cfg, mesh22, steps=TP_LOOP_STEPS, global_batch=4,
+                     seq_len=16, ckpt_dir=os.path.join(tmp, "loop_ckpt"),
+                     ckpt_every=1, optimizer=tp_optimizer(TP_LOOP_STEPS, 0),
+                     fault_hook=hook, log_every=0, device="cpu")
+    out.update({"loop/losses": np.asarray(rep.losses),
+                "loop/restarts": rep.restarts})
+    save(tmp, "tp", rank, **out)
+    done()
+
+
+def tp_card_rank(rank: int, world: int, tmp: str) -> None:
+    """``tests/test_torch_cuda_dist.py``: :func:`tp_steps` of the reduced
+    qwen2 on a (1, 2) mesh of gloo ranks sharing card 0, from the
+    parameters and batch in ``<tmp>/tp_in.npz``; rank 0 writes."""
+    dev = rank_device(rank, world, "gloo", "cuda")
+    mesh = process_mesh(rank, world, tmp, "tpcard", shape=(1, world),
+                        axes=("data", "model"), device=dev)
+    with np.load(os.path.join(tmp, "tp_in.npz")) as f:
+        arrays = dict(f)
+    batch = {k: torch.from_numpy(arrays["b/" + k]) for k in ("tokens",
+                                                              "labels")}
+    out = tp_steps(tp_config("qwen2-1.5b"), _tree(arrays, "p/"), batch,
+                   mesh, device=dev)
+    if rank == 0:
+        save(tmp, "tpcard", rank, **out)
+    done()

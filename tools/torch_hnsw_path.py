@@ -4,7 +4,7 @@ CUDA card.
 
 Run from the root of a checkout, on a machine with a card:
 
-    python3 tools/torch_hnsw_path.py [--n10 5000] [--seed 0]
+    python3 tools/torch_hnsw_path.py [--n10 1000] [--seed 0]
 
 It makes phase 4's corpus and held-out queries (the 1M-row deep-like
 mixture and its 64 further rows, from ``--seed``) without building phase

@@ -4,17 +4,23 @@ search over gloo ranks sharing the card, data-parallel training of
 qwen2-1.5b at full width, NCCL at world size 1), or with ``--phase15`` its
 phase 15 (the facade over a process group: writes, an epoch swap, elastic
 rescaling and the serve launcher under torchrun, over gloo ranks sharing
-the card), alone on one CUDA card.
+the card), or with ``--phase16`` its phase 16 (tensor parallelism on a
+model axis and data-parallel MoE: qwen2-1.5b served on (1, 2) and (1, 4)
+and trained on (2, 2), moonshot-v1-16b-a3b at 2 layers trained on (2, 1)
+and (1, 2) and served on (1, 2), over gloo ranks sharing the card), alone
+on one CUDA card.
 
 Run from the root of a checkout, on a machine with a card:
 
-    python3 tools/torch_pg_path.py [--n 1000000] [--seed 0] [--phase15]
+    python3 tools/torch_pg_path.py [--n 1000000] [--seed 0]
+        [--phase15 | --phase16]
 
 It makes phase 4's corpus, queries and eps. For phase 14 it builds phase
 6's index of 4 shards on the card (``build_sharded_index``, as phase 6's
 facade does) and serves the 64 queries on a 16-lane ``ShardedEngine`` over
 a ``LocalMesh`` (phase 6 (d)), then runs phase 14 against them; phase 15
-takes the corpus's first ``EL_ROWS`` rows. Every gate of the phase runs.
+takes the corpus's first ``EL_ROWS`` rows; phase 16 needs no corpus and
+builds no kernel. Every gate of the phase runs.
 Writes everything to chiprun_out/pg_path.json; the last line is ``OK``.
 """
 from __future__ import annotations
@@ -35,6 +41,9 @@ def main() -> int:
     p.add_argument("--phase15", action="store_true",
                    help="run phase 15 (the facade over a process group) "
                         "instead of phase 14")
+    p.add_argument("--phase16", action="store_true",
+                   help="run phase 16 (tensor parallelism and the "
+                        "data-parallel MoE) instead of phase 14")
     args = p.parse_args()
 
     import torch
@@ -53,13 +62,25 @@ def main() -> int:
     print(cs.smi_line(), flush=True)
     os.makedirs(cs.OUT, exist_ok=True)
     device = torch.device("cuda")
+    report: dict = {}
+    if args.phase16:
+        try:
+            t = time.perf_counter()
+            launches = cs.tensor_parallel_path(torch, report, args.seed,
+                                               device)
+            print(f"phase 16 s {time.perf_counter() - t}", flush=True)
+            print(json.dumps(launches), flush=True)
+        finally:
+            with open(os.path.join(cs.OUT, "pg_path.json"), "w") as f:
+                json.dump(report, f, indent=1, default=str)
+        print("OK")
+        return 0
     _build.build_all()
     allx = cs.deep_like(torch, args.n + 64, cs.D, args.seed, device)
     x = allx[:args.n].contiguous()
     qs_np = allx[args.n:].cpu().numpy()
     del allx
     eps = cs.calibrate_eps(torch, sim, x, args.seed + 1, device)
-    report: dict = {}
     if args.phase15:
         rows = x[:cs.EL_ROWS].cpu().numpy()
         del x
