@@ -384,11 +384,12 @@ Phases:
    and (1, 4) (they are replicated; each q head reads the kv head of its
    global index). Gate: the prefill and decode logits within ``TP16_ULPS``
    bf16 ulps of one process's largest |logit|. (b) qwen2-1.5b trained on
-   (2, 2), 3 steps of B = 16, S = 64: phase 14 (b)'s gate against one
+   (2, 2), 2 steps of B = 16, S = 64 (cut from 3 for the script's time):
+   phase 14 (b)'s gate against one
    process over the whole batch (each loss within ``DP_WHOLE_LOSS_RTOL``,
-   the first step's gradients, each rank's slices against the same slices,
-   within ``TRAIN_GRAD_ULPS`` bf16 ulps of the whole leaf's largest
-   |entry|), both under deterministic algorithms, so the gaps repeat from
+   the first step's gradients, gathered whole over the model axis, within
+   ``TRAIN_GRAD_ULPS`` bf16 ulps of each leaf's largest |entry|, and
+   finite), both under deterministic algorithms, so the gaps repeat from
    run to run. (c) moonshot-v1-16b-a3b at full width (d_model 2 048, 64
    experts, top-6, vocab 163 840) with 2 of its 48 layers (listed under
    ``reduced``): a train step on (2, 1) (the data-parallel MoE: the sort
@@ -398,7 +399,26 @@ Phases:
    are counted, not gated). Gates: every route call's dropped pairs equal
    to one process's (summed over the data ranks), the loss within
    ``DP_WHOLE_LOSS_RTOL``, the logits and gradients within ``TP16_ULPS`` /
-   ``TRAIN_GRAD_ULPS`` bf16 ulps. Printed for each part and rank: the
+   ``TRAIN_GRAD_ULPS`` bf16 ulps. (d) the other families on (1, 2) at
+   full width: mamba2-370m (48 layers; Mamba-2's heads over the model
+   axis, ``w_in`` and the conv cut part by part), whisper-small (12 + 12
+   layers, 1 500 seeded frames), recurrentgemma-9b at one superblock (R R
+   A, 3 of 38 layers; the RG-LRU's width over the model axis) and
+   llama-3.2-vision-90b at one superblock (5 of 100 layers: 5 self blocks
+   and its cross block, 1 024 seeded vision tokens, the cross gates at
+   0.5): the 16 prompts of (a) through the prefill step, then 2 decode
+   steps (cut from 4 for the script's time) against cross caches
+   projected from the frontend embeddings;
+   and one train step of mamba2-370m (12 of its 48 layers: its gradients
+   drift from one process's by about half a bf16 ulp a layer, listed
+   under ``reduced``) and recurrentgemma-9b at B = 16, S = 64 under
+   deterministic algorithms, and one of mamba2-370m at all 48 layers in
+   float32 (every parameter float32, so no bf16 rounding flips). Gates:
+   the logits within ``TP16_ULPS`` bf16 ulps of one process's, the loss
+   within ``DP_WHOLE_LOSS_RTOL`` (a NaN fails) and every gradient,
+   gathered whole, within ``TRAIN_GRAD_ULPS`` bf16 ulps of its leaf's
+   largest |entry| (the float32 step's within ``TP16D_F32_RTOL`` of it).
+   Printed for each part and rank: the
    wall, ms a step, the share of a step inside collectives, device
    activities a step (rank 0's last step of each part, profiled in place),
    peak allocated GB, and the reckoned peaks before the first run. The ranks sharing one card measure the port's
@@ -654,7 +674,8 @@ PATH15_KERNELS = ("batch_similarity_gather", "pairwise_adjacency",
 # through the prefill step, then TP16_DECODE_STEPS decode steps at B =
 # RAG_Q, on each of TP16_SERVE_MESHES (its 2 kv heads split at m = 2, are
 # replicated at m = 4). (b) TRAIN_ARCH trained on TP16_TRAIN_MESH,
-# TP16_TRAIN_STEPS steps of TRAIN_B x TRAIN_S global batches. (c)
+# TP16_TRAIN_STEPS steps of TRAIN_B x TRAIN_S global batches (2, cut from
+# 3 for the script's time, listed under reduced). (c)
 # TP16_MOE_ARCH at full width, TP16_MOE_LAYERS of its layers: a train step
 # on each of TP16_MOE_TRAIN_MESHES (data parallel, expert parallel) and
 # TP16_DECODE_STEPS decode steps on TP16_MOE_SERVE_MESH, the routes
@@ -664,11 +685,38 @@ PATH15_KERNELS = ("batch_similarity_gather", "pairwise_adjacency",
 # bound), losses within DP_WHOLE_LOSS_RTOL, dropped pairs equal
 TP_RANKS = 4
 TP16_SERVE_MESHES = ((1, 2), (1, 4))
-TP16_TRAIN_MESH, TP16_TRAIN_STEPS = (2, 2), 3
+TP16_TRAIN_MESH, TP16_TRAIN_STEPS = (2, 2), 2
 TP16_DECODE_STEPS = 8
 TP16_MOE_ARCH, TP16_MOE_LAYERS = "moonshot-v1-16b-a3b", 2
 TP16_MOE_TRAIN_MESHES, TP16_MOE_SERVE_MESH = ((2, 1), (1, 2)), (1, 2)
 TP16_ULPS = 8
+# (d) the ssm, hybrid, encdec and vlm families on TP16D_MESH at full width:
+# the RAG_Q prompts of (a) through the prefill step, then
+# TP16D_DECODE_STEPS decode steps (2, cut from 4 for the script's time,
+# listed under reduced; whisper and the vlm attend to seeded
+# frontend embeddings, their decode's cross caches projected from them,
+# the vlm's cross gates at TP16D_GATE so that they contribute); a train
+# step of each of TP16D_TRAIN_ARCHS at TRAIN_B x TRAIN_S. TP16D_LAYERS
+# cuts depth (listed under reduced): recurrentgemma-9b to one superblock
+# (R R A), the vlm to one superblock at cross_attn_every 5; and
+# TP16D_TRAIN_LAYERS the train step's: mamba2-370m's first-step
+# gradients drift from one process's by about half a bf16 ulp a layer
+# (worst 5.2 ulps at 12 layers, 12.4 at 24, 27.5 at 48, on A_log, dt_bias
+# and D_skip first, NVIDIA H100 80GB HBM3, tools/torch_tp_depth.py; in
+# float32 the ranks equal one process to 2.6e-6 of each leaf's largest at
+# the reduced widths and 8 layers on the CPU,
+# tests/test_torch_tp_families.py), so it trains 12 in bf16; and all 48 of
+# TP16D_F32_ARCH's in float32 (every parameter float32), where no bf16
+# rounding flips: every gradient within TP16D_F32_RTOL of its leaf's
+# largest |entry| of one process's, so that a fault that grows with depth
+# or width shows at the full size
+TP16D_SERVE_ARCHS = ("mamba2-370m", "whisper-small", "recurrentgemma-9b",
+                     "llama-3.2-vision-90b")
+TP16D_TRAIN_ARCHS = ("mamba2-370m", "recurrentgemma-9b")
+TP16D_LAYERS = {"recurrentgemma-9b": 3, "llama-3.2-vision-90b": 5}
+TP16D_TRAIN_LAYERS = {"mamba2-370m": 12, "recurrentgemma-9b": 3}
+TP16D_MESH, TP16D_DECODE_STEPS, TP16D_GATE = (1, 2), 2, 0.5
+TP16D_F32_ARCH, TP16D_F32_RTOL = "mamba2-370m", 1e-4
 # the engines' signature kinds that launch a kernel, one launch a signature
 SIG_KERNELS = {"adjacency": "pairwise_adjacency", "fused_round": "fused_round",
                "greedy": "greedy_diversify", "sharded": "pairwise_adjacency"}
@@ -5633,6 +5681,24 @@ def tp16_memory(cfg_dense, cfg_moe) -> dict:
         one_process_gb=max(dense, moe) * train / gb)
     out["card_peak_gb"] = max(TP_RANKS * out["b_rank_gb"],
                               2 * out["c_data_rank_gb"])
+    # (d): a serving rank draws the whole model, then keeps its half; a
+    # training rank keeps half of the parameters, gradients and moments
+    m = TP16D_MESH[1]
+    for arch in TP16D_SERVE_ARCHS:
+        n = counts(tp16d_cfg(arch))
+        key = arch.split("-")[0]
+        out[f"d_{key}_params"] = n
+        out[f"d_{key}_serve_rank_gb"] = n * (2 + 2 / m) / gb
+        if arch in TP16D_TRAIN_ARCHS:
+            n = counts(tp16d_cfg(arch, train=True))
+            out[f"d_{key}_train_rank_gb"] = n * (2 + train / m) / gb
+            out[f"d_{key}_one_process_train_gb"] = n * train / gb
+    # the float32 step: 4 bytes a parameter drawn whole, then the rank's
+    # half of p, g, mu and nu at 4 bytes each (and one process's first
+    # gradients kept beside: 4 more)
+    n = counts(tp16d_f32_cfg())
+    out["d_f32_train_rank_gb"] = n * (4 + 16 / m) / gb
+    out["d_f32_one_process_train_gb"] = n * 20 / gb
     return out
 
 
@@ -5681,20 +5747,26 @@ def tp16_prompts(torch, cfg, seed, device):
 
 
 def tp16_serve(torch, M, steps_mod, cfg, params, toks, mesh, device,
-               profile_last=False):
-    """The prefill step on the prompts and TP16_DECODE_STEPS decode steps
-    along the tokens after them (from an empty cache): (prefill logits
-    [B, RAG_PROMPT, V], decode logits [B, steps, V], each step's synced
-    wall and seconds inside the mesh's collectives, and with
-    ``profile_last`` the last step's device activities under
-    torch.profiler)."""
+               profile_last=False, steps=TP16_DECODE_STEPS, frontend=None):
+    """The prefill step on the prompts and ``steps`` decode steps along the
+    tokens after them (from an empty cache; ``frontend``: the frontend
+    embeddings the prefill attends to and the decode's cross caches are
+    projected from, ``tp16d_fill_cross``): (prefill logits [B, RAG_PROMPT,
+    V], decode logits [B, steps, V], each step's synced wall and seconds
+    inside the mesh's collectives, and with ``profile_last`` the last
+    step's device activities under torch.profiler)."""
     prefill, _ = steps_mod.build_prefill_step(cfg, mesh)
     serve, _ = steps_mod.build_serve_step(cfg, mesh)
-    pre = prefill(params, {"tokens": toks[:, :RAG_PROMPT]})
-    cache = M.init_cache(cfg, toks.shape[0], TP16_DECODE_STEPS,
-                         device=device, mesh=mesh)
+    batch = {"tokens": toks[:, :RAG_PROMPT]}
+    if frontend is not None:
+        batch["frontend_embeds"] = frontend
+    pre = prefill(params, batch)
+    cache = M.init_cache(cfg, toks.shape[0], steps, device=device,
+                         mesh=mesh)
+    if frontend is not None:
+        tp16d_fill_cross(torch, cfg, params, cache, frontend)
     out, walls, colls, launches = [], [], [], None
-    for t in range(TP16_DECODE_STEPS):
+    for t in range(steps):
         c0 = mesh.collective_s if mesh is not None else 0.0
         t0 = time.perf_counter()
 
@@ -5702,7 +5774,7 @@ def tp16_serve(torch, M, steps_mod, cfg, params, toks, mesh, device,
             return serve(params, cache, toks[:, RAG_PROMPT + t:
                                              RAG_PROMPT + t + 1])
 
-        if profile_last and t == TP16_DECODE_STEPS - 1:
+        if profile_last and t == steps - 1:
             launches, (logits, cache) = tp16_profiled(torch, step)
         else:
             logits, cache = step()
@@ -5725,6 +5797,156 @@ def tp16_batches(cfg, seed, n):
 def tp16_moe_cfg(cfg):
     import dataclasses
     return dataclasses.replace(cfg, num_layers=TP16_MOE_LAYERS)
+
+
+def tp16d_cfg(arch, train=False):
+    """(d)'s config of ``arch``: full width, TP16D_LAYERS's depth
+    (``train``: TP16D_TRAIN_LAYERS's)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    n = (TP16D_TRAIN_LAYERS if train else TP16D_LAYERS).get(arch)
+    return dataclasses.replace(cfg, num_layers=n) if n else cfg
+
+
+def tp16d_f32_cfg():
+    """(d)'s float32 train config: TP16D_F32_ARCH at full width and depth,
+    every parameter float32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TP16D_F32_ARCH), dtype="float32")
+
+
+def tp16d_train(torch, cfg, params, seed, device, mesh=None,
+                profile=False) -> tuple[dict, dict]:
+    """One AdamW train step of (d) on ``params`` at TRAIN_B x TRAIN_S (on
+    ``mesh`` the rank's rows and slices), under deterministic algorithms:
+    ({loss, ms, launches (``profile``: the step's device activities, else
+    None), collective_s}, the step's gradients by parameter name)."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.train import optimizer as opt_mod
+
+    opt = GradCapture(opt_mod.AdamW(lr=opt_mod.cosine_schedule(
+        3e-3, 1, TRAIN_STEPS)))
+    step, _ = steps_mod.build_train_step(cfg, mesh, optimizer=opt)
+    state = opt.init(params)
+    b = tp16_batches(cfg, seed, 1)[0]
+    batch = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+    c0 = mesh.collective_s if mesh is not None else 0.0
+    launches = None
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        if profile:
+            launches, (_, _, loss) = tp16_profiled(
+                torch, lambda: step(params, state, batch))
+        else:
+            _, _, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    coll = mesh.collective_s - c0 if mesh is not None else 0.0
+    return dict(loss=float(loss), ms=wall * 1e3, launches=launches,
+                collective_s=coll), opt.first
+
+
+def tp16d_params(torch, M, cfg, seed, device, mesh=None):
+    """(d)'s seeded model (on a mesh the rank's slices of one process's
+    draw), the vlm's cross gates at TP16D_GATE."""
+    params = M.init_params(cfg, seed + 1604, device, mesh)
+    for blk in getattr(params, "cross_blocks", ()):
+        blk.gate.fill_(TP16D_GATE)
+    return params
+
+
+def tp16d_frontend(torch, cfg, seed, device):
+    """RAG_Q seeded frontend embeddings [RAG_Q, T, D] (N(0, 0.02^2), as
+    ``models.model.make_batch``'s) for whisper (1 500 frames) and the vlm
+    (1 024 vision tokens); None for the others."""
+    if not cfg.num_frontend_tokens:
+        return None
+    gen = torch.Generator(device=device).manual_seed(seed + 1605)
+    return (torch.randn((RAG_Q, cfg.num_frontend_tokens, cfg.d_model),
+                        generator=gen, device=device) * 0.02).to(
+        getattr(torch, cfg.dtype))
+
+
+def tp16d_fill_cross(torch, cfg, params, cache, frontend):
+    """The decode's cross caches projected from the frontend embeddings,
+    as the forward projects them: whisper's encoder output through each
+    decoder layer's cross k / v (with their biases), the vlm's embeddings
+    through each cross block's; on a mesh the rank's kv heads."""
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as L
+
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            src = encdec.encode(cfg, params, frontend)
+            attns = [p.cross_attn for p in params.dec_blocks]
+        else:
+            src, attns = frontend, [b.attn for b in params.cross_blocks]
+        for i, attn in enumerate(attns):
+            k, v = L.kv_project(attn, src, cfg.resolved_head_dim, params.mp)
+            cache["cross_k"][i].copy_(k)
+            cache["cross_v"][i].copy_(v)
+
+
+def tp16d_reference(torch, tmp, seed, device) -> dict:
+    """(d) on one process on the card: each of TP16D_SERVE_ARCHS's
+    prefill and decode logits, and each of TP16D_TRAIN_ARCHS's train step
+    (loss and gradients, under deterministic algorithms), written to
+    ``tmp`` as ``d_<arch>.pt``, and the float32 step of TP16D_F32_ARCH
+    (``d_f32.pt``); the card freed after each."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import model as M
+
+    out: dict = {}
+    for arch in TP16D_SERVE_ARCHS:
+        cfg = tp16d_cfg(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tp16d_params(torch, M, cfg, seed, device)
+        toks = tp16_prompts(torch, cfg, seed, device)
+        fe = tp16d_frontend(torch, cfg, seed, device)
+        pre, dec, steps = tp16_serve(torch, M, steps_mod, cfg, params, toks,
+                                     None, device, steps=TP16D_DECODE_STEPS,
+                                     frontend=fe)
+        rec = {"prefill": pre.cpu(), "decode": dec.cpu()}
+        res = dict(serve_s=time.perf_counter() - t0,
+                   decode_ms=steps["ms_per_step"])
+        del pre, dec, fe
+        if arch in TP16D_TRAIN_ARCHS:
+            if tp16d_cfg(arch, train=True) != cfg:
+                cfg = tp16d_cfg(arch, train=True)
+                del params
+                params = tp16d_params(torch, M, cfg, seed, device)
+            train, first = tp16d_train(torch, cfg, params, seed, device)
+            rec.update(loss=train["loss"],
+                       grads={n: g.cpu() for n, g in first.items()})
+            res.update(loss=train["loss"], train_ms=train["ms"])
+            del first
+        res["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.save(rec, os.path.join(tmp, f"d_{arch}.pt"))
+        out[arch] = res
+        del params, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tp16d_params(torch, M, tp16d_f32_cfg(), seed, device)
+    train, first = tp16d_train(torch, tp16d_f32_cfg(), params, seed, device)
+    torch.save({"loss": train["loss"],
+                "grads": {n: g.cpu() for n, g in first.items()}},
+               os.path.join(tmp, "d_f32.pt"))
+    out["f32_" + TP16D_F32_ARCH] = dict(
+        loss=train["loss"], train_ms=train["ms"],
+        peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def tp16_reference(torch, tmp, seed, device) -> dict:
@@ -5811,38 +6033,46 @@ def tp16_reference(torch, tmp, seed, device) -> dict:
     del params, dec
     gc.collect()
     torch.cuda.empty_cache()
+    out["d"] = tp16d_reference(torch, tmp, seed, device)
     return out
 
 
 def tp16_logit_gap(torch, got, want) -> dict:
     """``got`` against ``want`` in bf16 ulps of ``want``'s largest |logit|
-    (gated at TP16_ULPS by the caller)."""
+    (``ok``: within TP16_ULPS, and finite on both sides)."""
     want = want.to(got.device)
     unit = bf16_ulp(float(want.abs().max()))
     gap = float((got.float() - want.float()).abs().max())
-    return dict(max_abs_err=gap, ulps_of_largest=gap / unit,
-                ok=gap <= TP16_ULPS * unit)
+    return dict(max_abs_err=gap, ulps_of_largest=gap / unit if unit else gap,
+                ok=math.isfinite(gap) and math.isfinite(unit)
+                and gap <= TP16_ULPS * unit)
 
 
-def tp16_grad_gap(torch, sh, mesh, specs, got: dict, want: dict) -> dict:
-    """Each of this rank's first-step gradients (its slices) against the
-    same slices of one process's, in bf16 ulps of the whole leaf's largest
-    |entry|: the worst, the three widest leaves, and the leaves past
-    TRAIN_GRAD_ULPS."""
+def tp16_grad_gap(torch, M, params, got: dict, want: dict,
+                  rtol: float | None = None) -> dict:
+    """Each of the rank's first-step gradients gathered whole over the
+    model axis (``models.model.whole``: Mamba-2's ``w_in`` and conv part
+    by part; every model rank calls it) against one process's, in bf16
+    ulps of the leaf's largest |entry|, gated at TRAIN_GRAD_ULPS (with
+    ``rtol``, a float32 step's: in units of ``rtol`` times that largest,
+    gated at 1); a gradient that is not finite on either side fails."""
     gaps, bad = {}, []
-    for n, g in got.items():
-        whole = want[n]
-        unit = bf16_ulp(float(whole.float().abs().max()))
-        w = whole if specs is None or not sh.on_axis(specs[n]) else \
-            sh.shard_leaf(whole, specs[n], mesh)
-        gap = float((g.float() - w.to(g.device).float()).abs().max())
+    limit = 1.0 if rtol else TRAIN_GRAD_ULPS
+    for n, g in M.whole(params, got.items()):
+        whole = want[n].to(g.device).float()
+        top = float(whole.abs().max())
+        unit = rtol * top if rtol else bf16_ulp(top)
+        gap = float((g.float() - whole).abs().max())
         if unit:
             gaps[n] = gap / unit
-        if gap > TRAIN_GRAD_ULPS * unit:
-            bad.append(f"{n}: {gap / unit if unit else gap} ulps")
+        if not (math.isfinite(gap) and math.isfinite(unit)
+                and gap <= limit * unit):
+            bad.append(f"{n}: {gap / unit if unit else gap} units")
     widest = sorted(gaps.items(), key=lambda kv: -kv[1])[:3]
-    return dict(worst_grad_ulps=widest[0][1] if widest else 0.0,
-                widest=widest, failures=bad[:10], ok=not bad)
+    worst = widest[0][1] if widest else 0.0
+    return dict(worst_grad_ulps=worst, widest=widest, failures=bad[:10],
+                ok=not bad, **({"rtol": rtol, "worst_rel": worst * rtol}
+                               if rtol else {}))
 
 
 def tp16_profiled(torch, fn):
@@ -5868,7 +6098,6 @@ def tp16_rank(rank, world, tmp, seed):
 
     dev, mesh4 = pg_rank_mesh(torch, rank, world, tmp, "tp16", "gloo")
     from repro_torch.configs import get_config
-    from repro_torch.distributed import sharding as sh
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import model as M
@@ -5878,7 +6107,7 @@ def tp16_rank(rank, world, tmp, seed):
     axes = ("data", "model")
     meshes = {shape: mesh4.sub(math.prod(shape), shape, axes) for shape in
               (*TP16_SERVE_MESHES, TP16_TRAIN_MESH, *TP16_MOE_TRAIN_MESHES,
-               TP16_MOE_SERVE_MESH)}
+               TP16_MOE_SERVE_MESH, TP16D_MESH)}
     ops.reset_launch_counts()
     out: dict = {"rank": rank}
     # only rank 0 profiles (a step's launches are every rank's); its first
@@ -5958,8 +6187,8 @@ def tp16_rank(rank, world, tmp, seed):
         walls.append(time.perf_counter() - t0)
         colls.append(mesh.collective_s - c0)
         if i == 0:
-            grads = tp16_grad_gap(torch, sh, mesh, params.mp.specs,
-                                  opt.first, ref_b["grads"])
+            grads = tp16_grad_gap(torch, M, params, opt.first,
+                                  ref_b["grads"])
             opt.first = {}
     torch.use_deterministic_algorithms(False)
     res = ended(mesh, start)
@@ -6010,9 +6239,8 @@ def tp16_rank(rank, world, tmp, seed):
                    collective_share=(mesh.collective_s - c0) / wall,
                    drops=rec.drops, one_process_drops=ref_t["drops"],
                    route_flips=rec.log.flips, routes=rec.log.routes,
-                   grads=tp16_grad_gap(torch, sh, mesh, getattr(
-                       params.mp, "specs", None), opt.first,
-                       ref_t["grads"]))
+                   grads=tp16_grad_gap(torch, M, params, opt.first,
+                                       ref_t["grads"]))
         out[f"c_train_{shape[0]}x{shape[1]}"] = res
         del params, state, opt, step, batch
         settle(f"c_train_{shape[0]}x{shape[1]}")
@@ -6035,12 +6263,80 @@ def tp16_rank(rank, world, tmp, seed):
         out["c_decode_1x2"] = res
         del params, dec, ref_d
         settle("c_decode_1x2")
+
+    # (d) the ssm, hybrid, encdec and vlm families on TP16D_MESH
+    mesh = meshes[TP16D_MESH]
+    tag = f"{TP16D_MESH[0]}x{TP16D_MESH[1]}"
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"phase 16 rank {rank} before (d): "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} reserved; "
+        f"the card {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    for arch in TP16D_SERVE_ARCHS if mesh.member else ():
+        key = arch.split("-")[0]
+        cfg = tp16d_cfg(arch)
+        ref = torch.load(os.path.join(tmp, f"d_{arch}.pt"), mmap=True)
+        start = part(mesh)
+        params = tp16d_params(torch, M, cfg, seed, dev, mesh)
+        toks = tp16_prompts(torch, cfg, seed, dev)
+        fe = tp16d_frontend(torch, cfg, seed, dev)
+        pre, dec, steps = tp16_serve(torch, M, steps_mod, cfg, params, toks,
+                                     mesh, dev, profile_last=rank == 0,
+                                     steps=TP16D_DECODE_STEPS, frontend=fe)
+        res = ended(mesh, start)
+        res.update(prefill=tp16_logit_gap(torch, pre, ref["prefill"]),
+                   decode=tp16_logit_gap(torch, dec, ref["decode"]), **steps)
+        out[f"d_serve_{key}_{tag}"] = res
+        del pre, dec, fe
+        if arch in TP16D_TRAIN_ARCHS and tp16d_cfg(arch, train=True) != cfg:
+            cfg = tp16d_cfg(arch, train=True)
+            del params
+            settle(f"d_serve_{key}_{tag}")
+            params = tp16d_params(torch, M, cfg, seed, dev, mesh)
+        else:
+            settle(f"d_serve_{key}_{tag}")
+        if arch in TP16D_TRAIN_ARCHS:
+            start = part(mesh)
+            out[f"d_train_{key}_{tag}"] = tp16d_train_rank(
+                torch, M, cfg, params, ref, seed, dev, mesh, start, ended,
+                profile=rank == 0)
+        del params, ref
+        settle(f"d_train_{key}_{tag}")
+    if mesh.member:
+        key = TP16D_F32_ARCH.split("-")[0]
+        ref = torch.load(os.path.join(tmp, "d_f32.pt"), mmap=True)
+        start = part(mesh)
+        params = tp16d_params(torch, M, tp16d_f32_cfg(), seed, dev, mesh)
+        out[f"d_train32_{key}_{tag}"] = tp16d_train_rank(
+            torch, M, tp16d_f32_cfg(), params, ref, seed, dev, mesh, start,
+            ended, rtol=TP16D_F32_RTOL)
+        del params, ref
+        settle(f"d_train32_{key}_{tag}")
     out["launches"] = ops.launch_counts()
     out["staged_bytes"] = sum(m.staged_bytes for m in meshes.values())
     with open(os.path.join(tmp, f"tp16_{rank}.json"), "w") as f:
         json.dump(out, f)
     mesh4.barrier()
     dist.destroy_process_group()
+
+
+def tp16d_train_rank(torch, M, cfg, params, ref, seed, dev, mesh, start,
+                     ended, profile=False, rtol=None) -> dict:
+    """(d)'s train step on a rank (``tp16d_train``) held to one process's
+    ``ref``: the loss's relative gap and the gradients'
+    (``tp16_grad_gap``, ``rtol`` for a float32 step), with the step's
+    wall, collective share and launches."""
+    train, first = tp16d_train(torch, cfg, params, seed, dev, mesh,
+                               profile=profile)
+    grads = tp16_grad_gap(torch, M, params, first, ref["grads"], rtol=rtol)
+    res = ended(mesh, start)
+    res.update(loss=train["loss"], one_process_loss=ref["loss"],
+               loss_rel_gap=abs(train["loss"] - ref["loss"]) / abs(
+                   ref["loss"]),
+               ms_per_step=train["ms"],
+               collective_share=train["collective_s"] / train["ms"] * 1e3,
+               launches_per_step=train["launches"], grads=grads)
+    return res
 
 
 def tp16_check(ranks) -> list[str]:
@@ -6054,14 +6350,24 @@ def tp16_check(ranks) -> list[str]:
             for what in ("prefill", "decode", "grads"):
                 if what in res and not res[what]["ok"]:
                     bad.append(f"{key} rank {r} {what}: {res[what]}")
-            if key == "b" and max(res["loss_rel_gaps"]) > DP_WHOLE_LOSS_RTOL:
+            if key == "b" and not all(g <= DP_WHOLE_LOSS_RTOL
+                                      for g in res["loss_rel_gaps"]):
                 bad.append(f"b rank {r} losses: {res['loss_rel_gaps']}")
-            if key.startswith("c_train") and (
-                    res["loss_rel_gap"] > DP_WHOLE_LOSS_RTOL):
+            if key.startswith(("c_train", "d_train")) and not (
+                    res["loss_rel_gap"] <= DP_WHOLE_LOSS_RTOL):
                 bad.append(f"{key} rank {r} loss: {res['loss_rel_gap']}")
         if any(rk["launches"].values()):
             bad.append(f"rank {r} launched a search kernel: "
                        f"{rk['launches']}")
+    tag = f"{TP16D_MESH[0]}x{TP16D_MESH[1]}"
+    parts = [(part, arch) for arch in TP16D_SERVE_ARCHS
+             for part in ("serve",) + (("train",) if arch in
+                                       TP16D_TRAIN_ARCHS else ())]
+    for part, arch in parts + [("train32", TP16D_F32_ARCH)]:
+        held = sum(f"d_{part}_{arch.split('-')[0]}_{tag}" in rk
+                   for rk in ranks)
+        if held != math.prod(TP16D_MESH):
+            bad.append(f"(d) {part} {arch}: {held} ranks reported")
     for key in ("c_train_2x1", "c_train_1x2", "c_decode_1x2"):
         holders = [rk[key] for rk in ranks if key in rk]
         want = holders[0]["one_process_drops"]
@@ -6090,6 +6396,22 @@ def tensor_parallel_path(torch, report, seed, device):
         f"{TP16_MOE_LAYERS} of its {get_config(TP16_MOE_ARCH).num_layers} "
         "layers (a depth cut: one process's step and the ranks' fit the "
         "card and the phase's time)")
+    report["reduced"].append(
+        f"phase 16 (b) trains {TRAIN_ARCH} for {TP16_TRAIN_STEPS} steps (was "
+        "3) and (d) serves each model for "
+        f"{TP16D_DECODE_STEPS} decode steps (was 4): the script's time")
+    for arch, n in TP16D_LAYERS.items():
+        report["reduced"].append(
+            f"phase 16 (d) runs {arch} at full width with {n} of its "
+            f"{get_config(arch).num_layers} layers (a depth cut: one "
+            "superblock, so that (d) keeps to its time)")
+    for arch, n in TP16D_TRAIN_LAYERS.items():
+        if n != tp16d_cfg(arch).num_layers:
+            report["reduced"].append(
+                f"phase 16 (d) trains {arch} at full width with {n} of its "
+                f"{get_config(arch).num_layers} layers (a depth cut: the "
+                "first-step gradients drift from one process's by about "
+                "half a bf16 ulp a layer; it serves all of them)")
     out: dict = {}
     t_path = time.perf_counter()
     mem = tp16_memory(get_config(TRAIN_ARCH),
@@ -6104,6 +6426,12 @@ def tensor_parallel_path(torch, report, seed, device):
         out["one_process"] = tp16_reference(torch, tmp, seed, device)
         out["one_process"]["wall_s"] = time.perf_counter() - t0
         log("phase 16 one process: " + json.dumps(out["one_process"]))
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"phase 16 before the ranks: this process "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the "
+            f"card {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
         t0 = time.perf_counter()
         pg_spawn(torch, tp16_rank, TP_RANKS, tmp, seed)
         out["ranks_wall_s"] = time.perf_counter() - t0

@@ -20,7 +20,8 @@ tree itself plus the target shard count:
 The third family is model parameters (the reference's params tree of
 whole leaves, as ``models.model.stack`` lays them out): on a process-group
 mesh each rank keeps its slice of every leaf under the target mesh's
-``distributed.sharding.param_spec_tree`` (``cfg=`` keys the rules). With
+``distributed.sharding.param_spec_tree`` (``cfg=`` keys the rules), cut
+by ``sharding.param_cut`` (Mamba-2's concatenated leaves part by part). With
 ``old_mesh=`` the leaves are this rank's slices under the old mesh's specs,
 gathered whole first, so a tree moves from one mesh shape to another over
 the same ranks.
@@ -86,15 +87,17 @@ def reshard_tree(tree: Any, new_mesh=None, cfg=None, spec_fn=None, *,
     new_specs = spec_fn(cfg, layout, new_mesh)
     if old_mesh is not None:
         tree = _zip(tree, spec_fn(cfg, layout, old_mesh),
-                    lambda x, s: sh.gather_leaf(x, s, old_mesh))
+                    lambda path, x, s: sh.param_cut(
+                        cfg, path, s, old_mesh).gather(x, old_mesh))
     return _zip(tree, new_specs,
-                lambda x, s: sh.shard_leaf(torch.as_tensor(x), s, new_mesh))
+                lambda path, x, s: sh.param_cut(cfg, path, s, new_mesh)
+                .shard(torch.as_tensor(x), new_mesh))
 
 
-def _zip(tree: dict, specs: dict, fn) -> dict:
-    """``fn(leaf, spec)`` over two trees of the same keys."""
+def _zip(tree: dict, specs: dict, fn, path=()) -> dict:
+    """``fn(path, leaf, spec)`` over two trees of the same keys."""
     if set(tree) != set(specs):
         raise ValueError(f"the tree's keys {sorted(tree)} are not the "
                          f"params' {sorted(specs)}")
-    return {k: _zip(v, specs[k], fn) if isinstance(v, dict)
-            else fn(v, specs[k]) for k, v in tree.items()}
+    return {k: _zip(v, specs[k], fn, path + (k,)) if isinstance(v, dict)
+            else fn(path + (k,), v, specs[k]) for k, v in tree.items()}

@@ -24,8 +24,20 @@ by gathering the slices (``gather_leaf``). A mesh here is anything with
 ``shape`` (a tuple, or a dict of axis sizes) and ``axis_names``.
 ``param_specs`` gives the spec of each parameter of the port's module (by
 its name), ``local_shape`` a rank's slice's shape and ``on_axis`` whether
-a spec splits a dimension over an axis: what a rank's tensor-parallel
-module (``models.model.shard``) is cut by.
+a spec splits a dimension over an axis.
+
+GSPMD computes the one-process function whatever the placement; a rank
+here must hold what its share of the work reads. :func:`param_cut` is how
+a rank's slice of a parameter is cut from the whole leaf and gathered back
+(:class:`Cut`), the one helper every cut and gather of a parameter goes
+through (``models.model.shard`` / ``whole``, the optimizer's moments,
+``elastic.reshard_tree``). It is the spec's cut, except for Mamba-2's
+concatenated leaves: ``w_in`` [D, z Di | x Di | B N | C N | dt H] and
+``conv_w`` / ``conv_b`` [.., x Di | B N | C N] are cut part by part, each
+rank taking its heads' block of z, x and dt and every column of B and C
+(one group, read by every head). Where the heads do not divide the model
+axis, or the rules keep ``w_in`` or the conv whole, the whole SSM group
+stays whole on every rank.
 """
 from __future__ import annotations
 
@@ -35,6 +47,8 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+
+MODEL = "model"
 
 
 def axis_sizes(mesh) -> dict[str, int]:
@@ -199,13 +213,128 @@ def on_axis(spec: tuple, axis: str = "model") -> bool:
     return any(axis in _entry_axes(e) for e in spec)
 
 
-def local_shape(shape, spec: tuple, mesh) -> torch.Size:
+def local_shape(shape, spec: tuple, mesh, parts=None) -> torch.Size:
     """The shape of a rank's slice of a leaf of ``shape`` under ``spec``
-    (:func:`shard_leaf`'s)."""
+    (:func:`shard_leaf`'s), or cut part by part along its last dimension
+    (``parts``, :class:`Cut`'s)."""
     sizes = axis_sizes(mesh)
+    if parts is not None:
+        m = sizes[MODEL]
+        return torch.Size(tuple(shape[:-1]) + (
+            sum(w // m if split else w for w, split in parts),))
     return torch.Size(n // math.prod(sizes[a] for a in _entry_axes(e))
                       for n, e in zip(shape, tuple(spec) + (None,) * (
                           len(shape) - len(spec))))
+
+
+#: the Mamba-2 block's parameters, split over the model axis together
+SSM_LEAVES = ("w_in", "conv_w", "conv_b", "norm_scale", "A_log", "dt_bias",
+              "D_skip", "w_out")
+
+
+def ssm_split(cfg: ModelConfig, m: int) -> bool:
+    """Whether a rank runs H / m of the Mamba-2 heads at a model axis of
+    ``m``: the heads divide m and the rules split ``w_in`` and the conv
+    (their last dimensions divide m)."""
+    di = cfg.ssm_expand * cfg.d_model
+    n, h = cfg.ssm_state, di // max(cfg.ssm_headdim, 1)
+    return (m > 1 and h % m == 0 and (2 * di + 2 * n + h) % m == 0
+            and (di + 2 * n) % m == 0)
+
+
+class Cut:
+    """How a rank's slice of one parameter is cut from the whole leaf and
+    gathered back: by ``spec`` (:func:`shard_leaf` / :func:`gather_leaf`),
+    or, with ``parts`` ((width, split), ...) along the last dimension, part
+    by part: a split part gives the rank its block of width / m (``m``,
+    the model axis's size, at the rank's coordinate), a part that is not
+    split is whole on every rank. ``split``: whether the rank holds less
+    than the whole leaf."""
+
+    def __init__(self, spec: tuple, parts=None, m: int = 1):
+        self.spec, self.parts, self.m = tuple(spec), parts, m
+
+    @property
+    def split(self) -> bool:
+        return on_axis(self.spec)
+
+    def local_shape(self, shape, mesh) -> torch.Size:
+        return local_shape(shape, self.spec, mesh, self.parts)
+
+    def shard(self, t: torch.Tensor, mesh) -> torch.Tensor:
+        """This rank's slice of the whole leaf ``t``."""
+        if self.parts is None:
+            return shard_leaf(t, self.spec, mesh)
+        m, i = self.m, mesh.coords[mesh.axis_names.index(MODEL)]
+        pieces, off = [], 0
+        for w, split in self.parts:
+            p = t.narrow(-1, off, w)
+            pieces.append(p.narrow(-1, i * (w // m), w // m) if split else p)
+            off += w
+        return torch.cat(pieces, -1).contiguous()
+
+    def gather(self, t: torch.Tensor, mesh) -> torch.Tensor:
+        """The whole leaf from every model rank's slice ``t`` (every model
+        rank calls it): the inverse of :meth:`shard`, bit for bit."""
+        if self.parts is None:
+            return gather_leaf(t, self.spec, mesh)
+        m = self.m
+        every = mesh.all_gather(t.contiguous()[None], axis=0,
+                                axis_name=MODEL)
+        pieces, off = [], 0
+        for w, split in self.parts:
+            w = w // m if split else w
+            pieces.append(torch.cat(list(every.narrow(-1, off, w)), -1)
+                          if split else t.narrow(-1, off, w))
+            off += w
+        return torch.cat(pieces, -1).contiguous()
+
+    def squares(self, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(the float32 sum of squares of the entries of the rank's slice
+        ``g`` that are split over the model axis, and of those it holds
+        whole): a gradient's share of the whole tree's squared norm is the
+        first summed over the model ranks, plus the second once."""
+        sq = torch.square(g.to(torch.float32))
+        zero = sq.new_zeros(())
+        if self.parts is None:
+            return (sq.sum(), zero) if self.split else (zero, sq.sum())
+        split, whole, off = zero, zero, 0
+        for w, s in self.parts:
+            w = w // self.m if s else w
+            part = sq.narrow(-1, off, w).sum()
+            if s:
+                split = split + part
+            else:
+                whole = whole + part
+            off += w
+        return split, whole
+
+
+def param_cut(cfg: ModelConfig, name, spec: tuple, mesh) -> Cut:
+    """The :class:`Cut` of the parameter ``name`` (a module's parameter
+    name, or a path in the reference's tree: its last key is read) under
+    the rules' ``spec`` on ``mesh``."""
+    leaf = name[-1] if isinstance(name, tuple) else name.rsplit(".", 1)[-1]
+    if cfg.family != "ssm" or leaf not in SSM_LEAVES:
+        return Cut(spec)
+    m = axis_sizes(mesh).get(MODEL, 1)
+    if not ssm_split(cfg, m):
+        return Cut((None,) * len(spec))
+    di = cfg.ssm_expand * cfg.d_model
+    n, h = cfg.ssm_state, di // cfg.ssm_headdim
+    if leaf == "w_in":
+        return Cut(spec, ((di, True), (di, True), (n, False), (n, False),
+                          (h, True)), m)
+    if leaf in ("conv_w", "conv_b"):
+        return Cut(spec, ((di, True), (n, False), (n, False)), m)
+    return Cut(spec)
+
+
+def param_cuts(cfg: ModelConfig, mesh) -> dict[str, Cut]:
+    """{parameter name of the port's module: its :class:`Cut`}, from
+    :func:`param_specs`."""
+    return {name: param_cut(cfg, name, spec, mesh)
+            for name, spec in param_specs(cfg, mesh).items()}
 
 
 def batch_axes_for(b: int, mesh, reserve_model: bool = False

@@ -14,6 +14,18 @@ tensors, so none is used):
   after a row-parallel product, whose output each rank holds a share of.
 * :func:`gather_from_model`: an all-gather along a dimension forward, the
   rank's slice of the gradient backward.
+* :func:`scatter_from_model`: a reduce-scatter along a dimension, a psum
+  forward followed by the rank's block, and an all-gather of the gradient
+  backward. It goes after a product whose input rows are split (RG-LRU's
+  ``w_r`` / ``w_i``): each rank holds a partial sum of every output
+  channel and keeps its own channels; each channel's gradient, which one
+  rank holds, reaches the partial sums of every rank.
+* :func:`sum_over_model`: a psum forward and a psum of the gradient
+  backward. It sums a statistic that every rank's channels consume (the
+  gated RMSNorm's sum of squares over Mamba-2's split width): each rank
+  holds the gradient of its own channels' use of the sum only, and the
+  sum's gradient is the total over the ranks. It is
+  ``copy_to_model(reduce_from_model(x))``.
 * :func:`vocab_parallel_nll`: the cross entropy of vocab-sharded logits.
 
 ``torch.distributed.nn.functional.all_reduce`` is not one of them: its
@@ -30,12 +42,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import axis_sizes
+from repro_torch.distributed.sharding import MODEL, axis_sizes, param_cuts
 
 F32 = torch.float32
-MODEL = "model"
-#: the families whose layers run tensor parallel
-TENSOR_PARALLEL = ("dense", "moe")
 
 
 def model_axis(mesh) -> int:
@@ -43,44 +52,43 @@ def model_axis(mesh) -> int:
     return 1 if mesh is None else axis_sizes(mesh).get(MODEL, 1)
 
 
-def check_tensor_parallel(cfg, mesh) -> None:
-    """Refuse a ``model`` axis larger than 1 for the families whose layers
-    do not run tensor parallel yet."""
-    if model_axis(mesh) > 1 and cfg.family not in TENSOR_PARALLEL:
-        raise NotImplementedError(
-            f"tensor parallelism for the {cfg.family} family (a model axis "
-            f"of {model_axis(mesh)}) is ROADMAP queue 1 D.2 item 6")
-
-
 class ModelParallel:
     """A rank's place on the ``model`` axis of ``mesh`` (``size`` m, this
     rank's coordinate ``index``) and which parameter groups the rules of
     ``distributed.sharding.param_spec_tree`` split over it for ``cfg``
-    (``specs``, by parameter name: ``sharding.param_specs``): the
-    vocabulary (``embed`` / ``lm_head``), the q heads (``wq`` / ``wo``),
-    the kv heads (``wk`` / ``wv``), the MLP's hidden width and the MoE's
-    experts."""
+    (``cuts``, by parameter name: how each parameter is cut from its whole
+    leaf, ``sharding.param_cuts``):
+    the vocabulary (``embed`` /
+    ``lm_head``), the q heads (``wq`` / ``wo`` of every attention: the
+    decoders' ``attn``, whisper's ``attn``, ``self_attn`` and
+    ``cross_attn``), the kv heads (``wk`` / ``wv``), the MLP's hidden
+    width, the MoE's experts, Mamba-2's heads (``ssm``) and the RG-LRU's
+    width (``lru``)."""
 
-    def __init__(self, cfg, mesh, specs: dict):
-        self.mesh, self.specs = mesh, specs
+    def __init__(self, cfg, mesh):
+        self.mesh = mesh
+        self.cuts = param_cuts(cfg, mesh)
         self.size = axis_sizes(mesh)[MODEL]
         self.index = mesh.coords[mesh.axis_names.index(MODEL)]
 
         def split(suffix: str) -> bool:
-            return any(name.endswith(suffix) and MODEL in spec
-                       for name, spec in specs.items())
+            return any(name.endswith(suffix) and cut.split
+                       for name, cut in self.cuts.items())
 
-        self.vocab = MODEL in specs["embed"]
-        self.heads = split(".attn.wq")
-        self.kv = split(".attn.wk")
+        self.vocab = self.cuts["embed"].split
+        self.heads = split("attn.wq")
+        self.kv = split("attn.wk")
         self.mlp = split(".mlp.wg") or split(".mlp.w1")
         self.experts = split(".moe.wg")
+        self.ssm = split(".w_in")
+        self.lru = split(".w_gate")
         h, kv = cfg.num_heads, cfg.num_kv_heads
         self.local_heads = h // self.size if self.heads else h
         #: the kv head each local q head reads: its global q index over
         #: the q heads a kv head serves, less the first local kv head
         first_q = self.index * self.local_heads if self.heads else 0
-        kv_of = [(first_q + j) // (h // kv) for j in range(self.local_heads)]
+        kv_of = [(first_q + j) // (h // kv) for j in range(self.local_heads)
+                 ] if kv else []         # ssm: no attention
         base = self.index * (kv // self.size) if self.kv else 0
         self.kv_of = [k - base for k in kv_of]
 
@@ -138,6 +146,22 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        m = axis_sizes(mesh)[MODEL]
+        ctx.mesh, ctx.dim = mesh, dim
+        n = x.shape[dim] // m
+        index = mesh.coords[mesh.axis_names.index(MODEL)]
+        return _psum(x, mesh).narrow(dim, index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = ctx.mesh.all_gather(g.contiguous()[None], axis=0,
+                                    axis_name=MODEL)
+        return torch.cat(list(parts), dim=ctx.dim), None, None
+
+
 def copy_to_model(x: torch.Tensor, mp: ModelParallel | None) -> torch.Tensor:
     """``x`` as it is; its gradient summed over the model axis."""
     if mp is None or mp.size == 1:
@@ -159,6 +183,21 @@ def gather_from_model(x: torch.Tensor, mp: ModelParallel | None,
     if mp is None or mp.size == 1:
         return x
     return _Gather.apply(x, mp.mesh, dim % x.dim())
+
+
+def scatter_from_model(x: torch.Tensor, mp: ModelParallel | None,
+                       dim: int = -1) -> torch.Tensor:
+    """The rank's block along ``dim`` of the sum of every model rank's
+    ``x`` (float32); the gradient all-gathered back to the whole ``x``."""
+    if mp is None or mp.size == 1:
+        return x
+    return _Scatter.apply(x, mp.mesh, dim % x.dim())
+
+
+def sum_over_model(x: torch.Tensor, mp: ModelParallel | None
+                   ) -> torch.Tensor:
+    """The sum of every model rank's ``x``, its gradient summed too."""
+    return copy_to_model(reduce_from_model(x, mp), mp)
 
 
 def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,

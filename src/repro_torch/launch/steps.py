@@ -17,9 +17,9 @@ row-major, as the reference's ``_bat``) and holds its slices of the
 parameters over ``model`` (``models.model.init_params`` / ``from_host``
 with the mesh; the reference's GSPMD places them by
 ``distributed.sharding.param_spec_tree``, here a rank runs its share of the
-layers with ``distributed.tensor_parallel``'s collectives). Tensor
-parallelism covers the dense and moe families; for the others a ``model``
-axis larger than 1 is ROADMAP queue 1 D.2 item 6.
+layers with ``distributed.tensor_parallel``'s collectives). Every family
+runs tensor parallel: the attention heads, MLP width, experts, Mamba-2's
+heads and the RG-LRU's width, each where the rules split it.
 """
 from __future__ import annotations
 
@@ -29,8 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import axis_sizes
-from repro_torch.distributed.tensor_parallel import (check_tensor_parallel,
-                                                     data_ranks)
+from repro_torch.distributed.tensor_parallel import data_ranks
 from repro_torch.models import model as M
 from repro_torch.train.optimizer import AdamW
 
@@ -43,9 +42,7 @@ MESH_AXES = ("pod", "data", "model")
 def check_mesh(cfg: ModelConfig, mesh) -> None:
     """Refuse a mesh the steps cannot run on: an axis other than ``pod``,
     ``data`` and ``model`` larger than 1, a mesh of more than one device
-    that is not a process group (one rank a block), and a ``model`` axis
-    larger than 1 for the families that do not run tensor parallel
-    (ROADMAP queue 1 D.2 item 6)."""
+    that is not a process group (one rank a block)."""
     if mesh is None:
         return
     sizes = axis_sizes(mesh)
@@ -58,7 +55,6 @@ def check_mesh(cfg: ModelConfig, mesh) -> None:
         raise NotImplementedError(
             f"a mesh of axes {sizes} on one process: the steps run one rank "
             "a block (compat.make_process_mesh)")
-    check_tensor_parallel(cfg, mesh)
 
 
 def psum_grads(grads: list, dp) -> None:

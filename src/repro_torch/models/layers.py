@@ -15,7 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.tensor_parallel import (copy_to_model,
-                                                     reduce_from_model)
+                                                     gather_from_model,
+                                                     reduce_from_model,
+                                                     sum_over_model)
 
 F32 = torch.float32
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
@@ -90,11 +92,19 @@ def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------- norms ---
-def rms_norm(x, scale, eps=1e-6):
+def rms_norm(x, scale, eps=1e-6, mp=None):
     """RMS norm in float32; ``scale`` is an offset (the weight is
-    ``1 + scale``, initialised to zeros)."""
+    ``1 + scale``, initialised to zeros). With ``mp`` (a
+    ``tensor_parallel.ModelParallel``) x and ``scale`` hold the rank's
+    block of a width split evenly over the model axis: the sum of squares
+    is ``sum_over_model``'s, a psum whose gradient is summed too, since
+    every rank's channels read it."""
     xf = x.to(F32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    if mp is None:
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    else:
+        ss = torch.sum(torch.square(xf), dim=-1, keepdim=True)
+        var = sum_over_model(ss, mp) / (xf.shape[-1] * mp.size)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.to(F32))).to(x.dtype)
 
@@ -407,27 +417,69 @@ def qkv_project(params, x, num_heads, num_kv_heads, head_dim, mp=None):
     float32, before the one rounding.
 
     With ``mp`` (a ``tensor_parallel.ModelParallel`` whose q heads are
-    split) q holds the rank's H / m heads, and k / v its KV / m kv heads
-    where the rules split them; where they do not, k / v hold every kv
-    head, each computed whole on every rank, and their gradient (each rank
-    holds the share of its own q heads) is summed over the model axis
-    before it reaches the replicated W_k / W_v."""
+    split) q holds the rank's H / m heads, and k / v what
+    :func:`kv_project` gives the rank."""
     b, s, _ = x.shape
     heads = mp is not None and mp.heads
     x_in = copy_to_model(x, mp if heads else None)
-    x_kv = x_in if heads and mp.kv else x
     q = dot_f32(x_in, params.wq)
-    k = dot_f32(x_kv, params.wk)
-    v = dot_f32(x_kv, params.wv)
+    k, v = kv_project(params, x, head_dim, mp, x_in=x_in)
     if getattr(params, "bq", None) is not None:
         q = q + params.bq
+    return q.reshape(b, s, -1, head_dim).to(x.dtype), k, v
+
+
+def kv_project(params, x, head_dim, mp=None, x_in=None, dtype=None):
+    """k / v [B,S,KV',hd]: ``x @ W_k`` / ``x @ W_v`` plus their biases
+    where ``params`` has them, in float32, rounded once to ``dtype``
+    (x's unless given).
+
+    With ``mp`` whose q heads are split, the rank's KV / m kv heads where
+    the rules split them: column-parallel products of ``x_in``
+    (``copy_to_model(x)`` unless the caller passes the one its q product
+    shares, so that their gradient is summed once). Where they do not,
+    every kv head, computed whole on every rank, whose gradient (each
+    rank holds the share of its own q heads) is summed over the model
+    axis before it reaches the replicated W_k / W_v."""
+    b, s, _ = x.shape
+    dtype = dtype or x.dtype
+    heads = mp is not None and mp.heads
+    src = x
+    if heads and mp.kv:
+        src = copy_to_model(x, mp) if x_in is None else x_in
+    k = dot_f32(src, params.wk)
+    v = dot_f32(src, params.wv)
+    if getattr(params, "bk", None) is not None:
         k = k + params.bk
         v = v + params.bv
     if heads and not mp.kv:
         k, v = copy_to_model(k, mp), copy_to_model(v, mp)
-    return (q.reshape(b, s, -1, head_dim).to(x.dtype),
-            k.reshape(b, s, -1, head_dim).to(x.dtype),
-            v.reshape(b, s, -1, head_dim).to(x.dtype))
+    return (k.reshape(b, s, -1, head_dim).to(dtype),
+            v.reshape(b, s, -1, head_dim).to(dtype))
+
+
+def vocab_embed(embed, tokens, mp=None):
+    """The rows of the embedding ``embed`` for ``tokens`` (global ids).
+    With the vocabulary split over the model axis a rank holds the rows
+    of its block: a token outside it looks up zeros, and the ranks'
+    lookups are summed, which adds one row to zeros, so it is exact."""
+    if mp is None or not mp.vocab:
+        return embed[tokens]
+    vl = embed.shape[0]
+    local = tokens - mp.index * vl
+    mine = (local >= 0) & (local < vl)
+    x = torch.where(mine[..., None], embed[local.clamp(0, vl - 1)], 0)
+    return reduce_from_model(x, mp)
+
+
+def vocab_logits(x, head, mp=None, vocab_block: bool = False):
+    """Float32 logits ``x @ head`` [..., V]. With the vocabulary split
+    over the model axis the rank's head is its vocab block: ``vocab_block``
+    returns that block [..., V / m], else the blocks are gathered whole."""
+    if mp is None or not mp.vocab:
+        return dot_f32(x, head)
+    y = dot_f32(copy_to_model(x, mp), head)
+    return y if vocab_block else gather_from_model(y, mp)
 
 
 def out_project(params, o, mp=None):

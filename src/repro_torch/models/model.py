@@ -25,10 +25,8 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.tensor_parallel import (ModelParallel,
-                                                     check_tensor_parallel,
-                                                     data_ranks, model_axis,
+                                                     model_axis,
                                                      vocab_parallel_nll)
 from repro_torch.models import encdec, transformer
 
@@ -48,20 +46,19 @@ def init_params(cfg: ModelConfig, rng=0, device=None, mesh=None
 def shard(cfg: ModelConfig, params: nn.Module, mesh) -> nn.Module:
     """``params`` (the whole model) cut to this rank's slices in place:
     every parameter the rules (``distributed.sharding.param_specs``) split
-    over ``model`` becomes its slice (``shard_leaf``), and the module keeps
-    the rank's :class:`~repro_torch.distributed.tensor_parallel.
-    ModelParallel` as ``params.mp``. A mesh without a ``model`` axis larger
-    than 1 leaves the module whole."""
-    check_tensor_parallel(cfg, mesh)
+    over ``model`` becomes its slice (its ``sharding.param_cut``), and the
+    module keeps the rank's :class:`~repro_torch.distributed.
+    tensor_parallel.ModelParallel` as ``params.mp``. A mesh without a
+    ``model`` axis larger than 1 leaves the module whole."""
     if model_axis(mesh) == 1:
         return params
-    specs = sh.param_specs(cfg, mesh)
+    mp = ModelParallel(cfg, mesh)
     for name, p in list(params.named_parameters()):
-        if sh.on_axis(specs[name]):
-            _set(params, name, nn.Parameter(
-                sh.shard_leaf(p.detach(), specs[name], mesh),
-                requires_grad=p.requires_grad))
-    params.mp = ModelParallel(cfg, mesh, specs)
+        cut = mp.cuts[name]
+        if cut.split:
+            _set(params, name, nn.Parameter(cut.shard(p.detach(), mesh),
+                                            requires_grad=p.requires_grad))
+    params.mp = mp
     return params
 
 
@@ -74,17 +71,16 @@ def whole(params: nn.Module, named=None):
     """(name, whole tensor) for each of ``named`` ((name, tensor) pairs of
     this rank's slices, by parameter name: ``params.named_parameters()``
     unless given, or the optimizer's moments), the sliced ones gathered
-    over the model axis (``gather_leaf``; every model rank must call it, in
-    the same order)."""
+    over the model axis (their ``Cut.gather``; every model rank must call
+    it, in the same order)."""
     named = params.named_parameters() if named is None else named
     mp = getattr(params, "mp", None)
     if mp is None:
         yield from named
         return
     for name, t in named:
-        spec = mp.specs[name]
-        yield name, (sh.gather_leaf(t.detach(), spec, mp.mesh)
-                     if sh.on_axis(spec) else t)
+        cut = mp.cuts[name]
+        yield name, cut.gather(t.detach(), mp.mesh) if cut.split else t
 
 
 def abstract_params(cfg: ModelConfig) -> nn.Module:
@@ -98,14 +94,14 @@ def needs_frontend(cfg: ModelConfig) -> bool:
 
 def forward(cfg: ModelConfig, params, batch, *, remat: bool = True,
             opts: dict | None = None, mesh=None, vocab_block: bool = False):
-    """(logits, aux). On a process-group ``mesh`` (dense and moe) the batch
-    is this rank's rows; ``vocab_block`` (with the vocabulary split over
-    the model axis) keeps the rank's block of the logits
-    (``transformer.forward``)."""
+    """(logits, aux). On a process-group ``mesh`` the batch is this rank's
+    rows; ``vocab_block`` (with the vocabulary split over the model axis)
+    keeps the rank's block of the logits (``transformer.forward``,
+    ``encdec.forward``)."""
     if cfg.family == "encdec":
         return encdec.forward(cfg, params, batch["tokens"],
                               frontend_embeds=batch["frontend_embeds"],
-                              remat=remat)
+                              remat=remat, vocab_block=vocab_block)
     return transformer.forward(cfg, params, batch["tokens"],
                                frontend_embeds=batch.get("frontend_embeds"),
                                remat=remat, opts=opts, mesh=mesh,
@@ -171,21 +167,16 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, rng=None,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
                mesh=None):
     """The decode cache; on a process-group ``mesh`` this rank's part of a
-    cache of ``batch`` global rows (``transformer.init_cache``)."""
-    if cfg.family != "encdec":
-        return transformer.init_cache(cfg, batch, max_seq, device, mesh)
-    check_tensor_parallel(cfg, mesh)
-    dp = data_ranks(mesh)
-    rows = slice(0, batch) if dp is None else dp.rows(batch)
-    return encdec.init_cache(cfg, rows.stop - rows.start, max_seq, device)
+    cache of ``batch`` global rows (``transformer.init_cache``,
+    ``encdec.init_cache``)."""
+    return _mod(cfg).init_cache(cfg, batch, max_seq, device, mesh)
 
 
 def decode_step(cfg: ModelConfig, params, cache, token, mesh=None):
     """One decode step; on a process-group ``mesh`` the token and the cache
-    are this rank's rows (``transformer.decode_step``)."""
-    if cfg.family == "encdec":
-        return encdec.decode_step(cfg, params, cache, token)
-    return transformer.decode_step(cfg, params, cache, token, mesh)
+    are this rank's rows (``transformer.decode_step``,
+    ``encdec.decode_step``)."""
+    return _mod(cfg).decode_step(cfg, params, cache, token, mesh)
 
 
 # ------------------------------------------------------ host carriers ---
@@ -274,7 +265,6 @@ def from_host(cfg: ModelConfig, host_params: dict, device=None,
     reference's params pytree as numpy arrays (or tensors), split by
     :func:`unstack`; on a mesh with a ``model`` axis, this rank's slices
     (:func:`shard`). The parameters have ``requires_grad=False``."""
-    check_tensor_parallel(cfg, mesh)
     device = resolve_device(device)
     module = abstract_params(cfg)
     for name, t in unstack(cfg, host_params).items():

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.tensor_parallel import (copy_to_model,
+                                                     reduce_from_model)
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -58,7 +60,12 @@ def ssd_chunked(xh, dt, A, B_, C_, chunk: int = 128, h0=None):
     seg = cumA[:, :, :, None, :] - cumA[:, :, None, :, :]  # [B,NC,q,k,H]
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
                                    device=xh.device))
-    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    # masked before the exp: above the diagonal seg is positive, and where
+    # it passes ~88.7 its float32 exp is inf, whose gradient times the
+    # mask's zero is NaN (the reference's where(causal, exp(seg), 0) takes
+    # that NaN; the forward is the same)
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                                  -torch.inf))
 
     # within-chunk: y_diag[q] = sum_k C_q.B_k decay(q, k) dt_k x_k
     cb = torch.einsum("bzqn,bzkn->bzqk", Cs, Bs)
@@ -98,22 +105,48 @@ def ssd_step(xh, dt, A, B_, C_, h):
 
 
 def mamba2_block(params, x, *, headdim: int, d_state: int, chunk: int = 128,
-                 decode_state=None):
+                 decode_state=None, mp=None):
     """The Mamba-2 block. x [B, S, D].
 
     params: w_in [D, 2*Di + 2*N + H], conv_w [K, Di + 2N], conv_b, A_log
     [H], D_skip [H], norm_scale [Di], w_out [Di, D], dt_bias [H].
     Returns (y, new_state): ``(conv_buf, h)`` with ``decode_state`` (the
-    conv buffer shifted by one token), else the last SSD state."""
+    conv buffer shifted by one token), else the last SSD state.
+
+    With ``mp`` (a ``tensor_parallel.ModelParallel`` whose ``ssm`` is
+    split) the rank runs its H / m heads: its ``w_in`` holds the heads'
+    columns of z, x and dt and every column of B and C, its conv the
+    heads' x channels and every B and C channel (``sharding.param_cut``).
+    z, x and dt are products of ``copy_to_model(x)`` (each rank holds its
+    columns' share of dL/dx); B and C are products of ``x`` itself, the
+    same on every rank, so their share of dL/dx is counted once, and
+    after the conv and SiLU they pass ``copy_to_model``, which sums their
+    gradient over every rank's heads. The conv, the SSD (per head: nothing
+    in it sums over heads), ``D_skip`` and ``norm_scale`` run on the rank's
+    heads and channels; the gated RMSNorm's sum of squares over the whole
+    Di is ``sum_over_model`` (a psum both ways); ``w_out`` is row-parallel,
+    its float32 partial products summed before the one rounding. The
+    decode state is the rank's: ``conv_buf`` [B, K, Di / m + 2N], ``h``
+    [B, H / m, P, N]."""
     b, s, d = x.shape
     di = params.w_out.shape[0]
     h_heads = params.A_log.shape[0]
     n = d_state
+    mp = mp if mp is not None and mp.ssm else None
 
-    zxbcdt = L.dot_f32(x, params.w_in).to(x.dtype)
-    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n,
-                                      zxbcdt.shape[-1] - 2 * di - 2 * n],
-                             dim=-1)
+    if mp is None:
+        zxbcdt = L.dot_f32(x, params.w_in).to(x.dtype)
+        z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n,
+                                          zxbcdt.shape[-1] - 2 * di - 2 * n],
+                                 dim=-1)
+    else:
+        w = params.w_in
+        x_in = copy_to_model(x, mp)
+        zx = L.dot_f32(x_in, w[:, :2 * di]).to(x.dtype)
+        bc = L.dot_f32(x, w[:, 2 * di:2 * di + 2 * n]).to(x.dtype)
+        dt = L.dot_f32(x_in, w[:, 2 * di + 2 * n:]).to(x.dtype)
+        z, xs = torch.split(zx, [di, di], dim=-1)
+        xbc = torch.cat([xs, bc], dim=-1)
 
     if decode_state is not None:
         conv_buf, h0 = decode_state
@@ -127,6 +160,10 @@ def mamba2_block(params, x, *, headdim: int, d_state: int, chunk: int = 128,
                                        params.conv_b)).to(x.dtype)
 
     xh, B_, C_ = torch.split(xbc_conv, [di, n, n], dim=-1)
+    if mp is not None:
+        # in float32, as the SSD reads them: the ranks' shares of their
+        # gradient are summed before its one rounding
+        B_, C_ = copy_to_model(B_.to(F32), mp), copy_to_model(C_.to(F32), mp)
     xh = xh.reshape(b, -1, h_heads, headdim)
     dt = F.softplus(dt.to(F32) + params.dt_bias)
     A = -torch.exp(params.A_log.to(F32))
@@ -139,5 +176,7 @@ def mamba2_block(params, x, *, headdim: int, d_state: int, chunk: int = 128,
     y = y + xh.to(F32) * params.D_skip[None, None, :, None]
     y = y.reshape(b, -1, di)
     # gated RMSNorm: norm(y * silu(z))
-    y = L.rms_norm((y * F.silu(z.to(F32))).to(x.dtype), params.norm_scale)
-    return L.dot_f32(y, params.w_out).to(x.dtype), new_state
+    gated = (y * F.silu(z.to(F32))).to(x.dtype)
+    y = L.rms_norm(gated, params.norm_scale, mp=mp)
+    out = reduce_from_model(L.dot_f32(y, params.w_out), mp)
+    return out.to(x.dtype), new_state

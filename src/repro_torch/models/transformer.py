@@ -34,14 +34,16 @@ drops other pairs) and ``attn_block_dtype``. Its other XLA knobs
 program, not the result, and have no counterpart: fully masked future kv
 chunks are always skipped.
 
-Over a process-group mesh (dense and moe) a rank's module holds its slices
+Over a process-group mesh a rank's module holds its slices
 (``models.model.shard``, ``DecoderLM.mp``) and the layers run Megatron's
 tensor parallelism with ``distributed.tensor_parallel``'s operators: the
 vocabulary-parallel embedding and head, the rank's q heads (and kv heads
-where the rules split them), row-parallel output projections and MLPs
-summed in float32 before their one rounding, and the MoE's experts
-(``models.moe``). The forward, loss and decode steps take the rank's rows
-of the batch; ``mesh`` makes the MoE's routing the whole batch's.
+where the rules split them) in self- and cross-attention, row-parallel
+output projections and MLPs summed in float32 before their one rounding,
+the MoE's experts (``models.moe``), Mamba-2's heads (``models.ssm``) and
+the RG-LRU's width (``models.rglru``). The forward, loss and decode steps
+take the rank's rows of the batch; ``mesh`` makes the MoE's routing the
+whole batch's.
 """
 from __future__ import annotations
 
@@ -52,12 +54,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.tensor_parallel import (check_tensor_parallel,
-                                                     copy_to_model,
-                                                     data_ranks,
-                                                     gather_from_model,
-                                                     model_axis,
-                                                     reduce_from_model)
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.tensor_parallel import data_ranks, model_axis
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.rglru import recurrent_block
@@ -324,22 +322,11 @@ def _embed(cfg: ModelConfig, params: DecoderLM, tokens,
     """Token embeddings in ``cfg.dtype``; tied ones (when ``scale``) times
     sqrt(d_model) rounded to that dtype first, as the reference's
     ``x * jnp.asarray(d_model ** 0.5, dt)`` (39.25 for 1 536 in bf16).
-
-    With the vocabulary split over the model axis a rank holds the rows of
-    its block: a token outside it looks up zeros, and the ranks' lookups
-    are summed, which adds one row to zeros, so it is exact."""
+    With the vocabulary split over the model axis, the ranks' lookups
+    summed (``layers.vocab_embed``)."""
     dt = torch_dtype(cfg)
     tokens = torch.as_tensor(tokens, device=params.device).long()
-    mp = params.mp
-    if mp is not None and mp.vocab:
-        vl = params.embed.shape[0]
-        local = tokens - mp.index * vl
-        mine = (local >= 0) & (local < vl)
-        x = torch.where(mine[..., None],
-                        params.embed[local.clamp(0, vl - 1)], 0)
-        x = reduce_from_model(x, mp).to(dt)
-    else:
-        x = params.embed[tokens].to(dt)
+    x = L.vocab_embed(params.embed, tokens, params.mp).to(dt)
     if scale and cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     return x
@@ -401,40 +388,43 @@ def _ffn(blk, x, cfg: ModelConfig, opts: dict | None = None, mp=None,
     return x + L.gated_mlp(blk.mlp, h, cfg.mlp_act, mp), 0.0
 
 
-def _gated(blk: CrossBlock, x, o):
-    """``tanh(gate) * out_project(o)`` in float32, rounded to x's dtype."""
-    out = L.out_project(blk.attn, o)
+def _gated(blk: CrossBlock, x, o, mp=None):
+    """``tanh(gate) * out_project(o)`` in float32, rounded to x's dtype;
+    with ``mp`` the gate multiplies the row-parallel projection after its
+    sum and one rounding, in the reference's order."""
+    out = L.out_project(blk.attn, o, mp)
     return x + (torch.tanh(blk.gate) * out.to(F32)).to(x.dtype)
 
 
-def _cross_attn(blk: CrossBlock, x, kv_src, cfg: ModelConfig):
+def _cross_attn(blk: CrossBlock, x, kv_src, cfg: ModelConfig, mp=None):
     """Gated cross-attention to the (precomputed) vision embeddings, then
-    the block's own MLP. k and v are ``kv_src @ wk`` / ``@ wv``, with no
-    bias."""
+    the block's own MLP; with ``mp`` on the rank's q heads, each reading
+    the kv head of its global index (``layers.kv_for_heads``)."""
     h = L.rms_norm(x, blk.norm1, cfg.norm_eps)
     q, _, _ = L.qkv_project(blk.attn, h, cfg.num_heads, cfg.num_kv_heads,
-                            cfg.resolved_head_dim)
-    b, t, _ = kv_src.shape
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    k = L.dot_f32(kv_src, blk.attn.wk).reshape(b, t, kvh, hd).to(x.dtype)
-    v = L.dot_f32(kv_src, blk.attn.wv).reshape(b, t, kvh, hd).to(x.dtype)
-    o = L.attention(q, k, v, causal=False)
-    x, _ = _ffn(blk, _gated(blk, x, o), cfg)
+                            cfg.resolved_head_dim, mp)
+    k, v = L.kv_project(blk.attn, kv_src, cfg.resolved_head_dim, mp,
+                        dtype=x.dtype)
+    o = L.attention(q, L.kv_for_heads(k, mp), L.kv_for_heads(v, mp),
+                    causal=False)
+    x, _ = _ffn(blk, _gated(blk, x, o, mp), cfg, mp=mp)
     return x
 
 
-def _rec_block(blk: RecurrentBlock, x, cfg: ModelConfig, decode_state=None):
+def _rec_block(blk: RecurrentBlock, x, cfg: ModelConfig, decode_state=None,
+               mp=None):
     h = L.rms_norm(x, blk.norm1, cfg.norm_eps)
-    y, new_state = recurrent_block(blk, h, decode_state)
-    x, _ = _ffn(blk, x + y, cfg)
+    y, new_state = recurrent_block(blk, h, decode_state, mp)
+    x, _ = _ffn(blk, x + y, cfg, mp=mp)
     return x, new_state
 
 
-def _ssm_block(blk: SSMBlock, x, cfg: ModelConfig, decode_state=None):
+def _ssm_block(blk: SSMBlock, x, cfg: ModelConfig, decode_state=None,
+               mp=None):
     h = L.rms_norm(x, blk.norm1, cfg.norm_eps)
     y, new_state = mamba2_block(blk, h, headdim=cfg.ssm_headdim,
                                 d_state=cfg.ssm_state, chunk=cfg.ssm_chunk,
-                                decode_state=decode_state)
+                                decode_state=decode_state, mp=mp)
     return x + y, new_state
 
 
@@ -460,11 +450,7 @@ def _logits(cfg: ModelConfig, params: DecoderLM, x,
     the same block): ``vocab_block`` returns that block [..., V / m], else
     the blocks are gathered whole."""
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    mp = params.mp
-    if mp is None or not mp.vocab:
-        return L.dot_f32(x, params.head())
-    y = L.dot_f32(copy_to_model(x, mp), params.head())
-    return y if vocab_block else gather_from_model(y, mp)
+    return L.vocab_logits(x, params.head(), params.mp, vocab_block)
 
 
 def _remat(fn, remat: bool, params: nn.Module):
@@ -518,9 +504,9 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens,
 
         def super_fn(x, selfs, cross):
             for blk in selfs:
-                x = _self_attn(blk, x, positions, cfg, opts=opts)
-                x, _ = _ffn(blk, x, cfg, opts)
-            return _cross_attn(cross, x, kv_src, cfg)
+                x = _self_attn(blk, x, positions, cfg, opts=opts, mp=mp)
+                x, _ = _ffn(blk, x, cfg, opts, mp)
+            return _cross_attn(cross, x, kv_src, cfg, mp)
 
         super_fn = _remat(super_fn, remat, params)
         for selfs, cross in zip(params.blocks, params.cross_blocks):
@@ -528,10 +514,10 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens,
     elif fam == "hybrid":
         def pattern_blk(c, blk, x):
             if c == "R":
-                return _rec_block(blk, x, cfg)[0]
+                return _rec_block(blk, x, cfg, mp=mp)[0]
             x = _self_attn(blk, x, positions, cfg, window=cfg.local_window,
-                           opts=opts)
-            return _ffn(blk, x, cfg, opts)[0]
+                           opts=opts, mp=mp)
+            return _ffn(blk, x, cfg, opts, mp)[0]
 
         def super_fn(x, sb):
             for i, c in enumerate(cfg.block_pattern):
@@ -545,7 +531,7 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens,
             x = pattern_blk(c, getattr(params, f"tail{i}"), x)
     else:   # ssm
         def blk_fn(x, blk):
-            return _ssm_block(blk, x, cfg)[0]
+            return _ssm_block(blk, x, cfg, mp=mp)[0]
 
         blk_fn = _remat(blk_fn, remat, params)
         for blk in params.blocks:
@@ -563,11 +549,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     KV, hd] hold T = ``cfg.num_frontend_tokens``.
 
     On a process-group ``mesh``: this rank's part of a cache of ``batch``
-    global rows, its rows over the data ranks and its kv heads where the
-    rules split them over the model axis. Where the kv heads do not divide
-    the axis the reference splits the cache's sequence instead
-    (``sharding.cache_spec_tree``); here each rank holds every kv head, the
-    same function at more memory."""
+    global rows, its rows over the data ranks and, over the model axis,
+    its kv heads (self and cross) where the rules split them, its
+    Mamba-2 heads' x channels in ``conv`` (with every B and C channel) and
+    heads in ``h``, and its RG-LRU channels in ``conv`` and ``lru_h``.
+    Where the kv heads do not divide the axis the reference splits the
+    cache's sequence instead (``sharding.cache_spec_tree``); here each rank
+    holds every kv head, the same function at more memory."""
     device = resolve_device(device)
     dt = torch_dtype(cfg)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -576,7 +564,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     if dp is not None:
         rows = dp.rows(batch)
         batch = rows.stop - rows.start
-    check_tensor_parallel(cfg, mesh)
     m = model_axis(mesh)
     if m > 1 and kv % m == 0:
         kv //= m
@@ -601,6 +588,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         n_super = cfg.num_layers // len(pat)
         n_attn, n_rec = pat.count("A"), pat.count("R")
         w = cfg.lru_width or cfg.d_model
+        w = w // m if w % m == 0 else w
         win = min(cfg.local_window, max_seq)
         cache["k"] = zeros(n_super, n_attn, batch, win, kv, hd)
         cache["v"] = zeros(n_super, n_attn, batch, win, kv, hd)
@@ -616,6 +604,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     elif fam == "ssm":
         di = cfg.ssm_expand * cfg.d_model
         nh = di // cfg.ssm_headdim
+        if sh.ssm_split(cfg, m):
+            di, nh = di // m, nh // m
         cache["conv"] = zeros(cfg.num_layers, batch, cfg.ssm_conv,
                               di + 2 * cfg.ssm_state)
         cache["h"] = zeros(cfg.num_layers, batch, nh, cfg.ssm_headdim,
@@ -664,21 +654,24 @@ def decode_step(cfg: ModelConfig, params: DecoderLM, cache: dict, token,
                                                params.cross_blocks)):
             for j, blk in enumerate(selfs):
                 x = _self_attn(blk, x, positions, cfg, decode=(
-                    cache["k"][s, j], cache["v"][s, j], cache_len))
-                x, _ = _ffn(blk, x, cfg)
-            # cross attention against the cached cross k / v
+                    cache["k"][s, j], cache["v"][s, j], cache_len), mp=mp)
+                x, _ = _ffn(blk, x, cfg, mp=mp)
+            # cross attention against the cached cross k / v (the rank's
+            # kv heads where the rules split them)
             h = L.rms_norm(x, cross.norm1, cfg.norm_eps)
             q, _, _ = L.qkv_project(cross.attn, h, cfg.num_heads,
-                                    cfg.num_kv_heads, cfg.resolved_head_dim)
-            ck, cv = cache["cross_k"][s], cache["cross_v"][s]
+                                    cfg.num_kv_heads, cfg.resolved_head_dim,
+                                    mp)
+            ck = L.kv_for_heads(cache["cross_k"][s], mp)
+            cv = L.kv_for_heads(cache["cross_v"][s], mp)
             o = L.decode_attention(q, ck, cv, torch.full(
                 (b,), ck.shape[1], dtype=torch.int32, device=x.device))
-            x, _ = _ffn(cross, _gated(cross, x, o), cfg)
+            x, _ = _ffn(cross, _gated(cross, x, o, mp), cfg, mp=mp)
     elif fam == "hybrid":
         for c, blk, slot in _hybrid_blocks(cfg, params):
             if c == "R":
                 views = _state(cache, slot, "conv", "lru_h")
-                x, new = _rec_block(blk, x, cfg, views)
+                x, new = _rec_block(blk, x, cfg, views, mp)
                 _write_state(views, new)
             else:
                 kv = ((cache[f"{slot}_k"], cache[f"{slot}_v"])
@@ -686,11 +679,11 @@ def decode_step(cfg: ModelConfig, params: DecoderLM, cache: dict, token,
                       else (cache["k"][slot], cache["v"][slot]))
                 x = _self_attn(blk, x, positions, cfg,
                                window=cfg.local_window,
-                               decode=(*kv, cache_len))
-                x, _ = _ffn(blk, x, cfg)
+                               decode=(*kv, cache_len), mp=mp)
+                x, _ = _ffn(blk, x, cfg, mp=mp)
     else:   # ssm
         for i, blk in enumerate(params.blocks):
             views = _state(cache, i, "conv", "h")
-            x, new = _ssm_block(blk, x, cfg, views)
+            x, new = _ssm_block(blk, x, cfg, views, mp)
             _write_state(views, new)
     return _logits(cfg, params, x), dict(cache, cache_len=cache_len + 1)

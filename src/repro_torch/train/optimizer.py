@@ -96,17 +96,16 @@ class AdamW:
 def global_sq_norm(grads: dict, mp=None) -> torch.Tensor:
     """The squared norm of the whole gradient tree: on a rank that holds
     slices (``mp``, a ``tensor_parallel.ModelParallel``), the sums of
-    squares of its sliced leaves summed over the model axis, and each
-    replicated leaf's counted once."""
-    sq = {n: torch.sum(torch.square(g.to(F32))) for n, g in grads.items()}
+    squares of its split entries summed over the model axis, and those of
+    the entries it holds whole counted once (a replicated leaf, and the
+    B and C columns of Mamba-2's part-wise ``w_in`` and conv:
+    ``sharding.Cut.squares``)."""
     if mp is None:
-        return torch.stack(list(sq.values())).sum()
-    zero = torch.zeros((), dtype=F32, device=next(iter(sq.values())).device)
-    split = [v for n, v in sq.items() if sh.on_axis(mp.specs[n])]
-    whole = [v for n, v in sq.items() if not sh.on_axis(mp.specs[n])]
-    split = mp.mesh.psum(torch.stack(split).sum()[None] if split
-                         else zero[None], MODEL)
-    return split + (torch.stack(whole).sum() if whole else zero)
+        return torch.stack([torch.sum(torch.square(g.to(F32)))
+                            for g in grads.values()]).sum()
+    split, whole = zip(*(mp.cuts[n].squares(g) for n, g in grads.items()))
+    split = mp.mesh.psum(torch.stack(split).sum()[None], MODEL)
+    return split + torch.stack(whole).sum()
 
 
 def cosine_schedule(peak: float, warmup: int, total: int,
@@ -147,11 +146,11 @@ def opt_state_from_host(cfg: ModelConfig, host: AdamWState,
     moments (``models.model.from_host``'s)."""
     device = resolve_device(device)
     step, mu, nu = host
-    specs = sh.param_specs(cfg, mesh) if model_axis(mesh) > 1 else None
+    cuts = sh.param_cuts(cfg, mesh) if model_axis(mesh) > 1 else None
 
     def piece(k, t):
-        if specs is not None and sh.on_axis(specs[k]):
-            t = sh.shard_leaf(t, specs[k], mesh)
+        if cuts is not None and cuts[k].split:
+            t = cuts[k].shard(t, mesh)
         return t.to(device, copy=True).contiguous()
 
     def moments(tree):

@@ -15,7 +15,8 @@
 * Tensor parallelism: the reduced qwen2 (vocabulary 504) on a (1, 2) mesh
   of gloo ranks sharing the card, its prefill and 4 decode steps' logits
   within 4 bf16 ulps of one process's on the card, and one train step's
-  loss at rtol 1e-4.
+  loss at rtol 1e-4; the same for the reduced mamba2 (Mamba-2's heads over
+  the model axis, w_in and the conv cut part by part).
 """
 import os
 
@@ -201,6 +202,42 @@ def test_tensor_parallel_decode_on_the_card_equals_one_process(tmp_path):
     batch = {"tokens": torch.from_numpy(toks),
              "labels": torch.from_numpy(labels)}
     want = R.tp_steps(cfg, host, batch, None, device="cuda")
+    for what in ("prefill", "decode"):
+        w = want[what].cpu().numpy()
+        top = float(np.abs(w).max())
+        tol = 4 * 2.0 ** (np.floor(np.log2(top)) - 7)
+        np.testing.assert_allclose(got[what], w, rtol=0, atol=tol,
+                                   err_msg=what)
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                               rtol=1e-4)
+
+
+def test_ssm_tensor_parallel_decode_on_the_card_equals_one_process(tmp_path):
+    """The reduced mamba2 on (1, 2) over gloo ranks sharing the card
+    against one process on the card: prefill and 4 decode steps' logits
+    within 4 bf16 ulps, the train step's loss at rtol 1e-4, and the rank's
+    module gathered whole (``to_host``) bit for bit."""
+    from repro_torch.models import model as M
+
+    arch = "mamba2-370m"
+    cfg = R.tp_config(arch)
+    host = M.to_host(M.init_params(cfg, 7, "cpu"))
+    rng = np.random.default_rng(8)
+    arrays = {
+        f"{arch}/b/tokens": rng.integers(0, cfg.vocab_size, (
+            R.TPF_B, R.TPF_S)).astype(np.int32),
+        f"{arch}/b/labels": rng.integers(0, cfg.vocab_size, (
+            R.TPF_B, R.TPF_S)).astype(np.int32)}
+    for key, a in R._flat(host):
+        arrays[f"{arch}/p/" + "/".join(key)] = (
+            a.view(np.uint16) if a.dtype.name in ("bfloat16", "uint16")
+            else a)
+    np.savez(tmp_path / "tpf_in.npz", **arrays)
+    R.spawn(R.tpf_card_rank, 2, str(tmp_path))
+    got = R.load(str(tmp_path), "tpfcard", 0)
+    host, batch, cross = R.tpf_inputs(arrays, arch)
+    want = R.tpf_steps(cfg, host, batch, cross, None, device="cuda")
+    assert bool(got["to_host_equal"])
     for what in ("prefill", "decode"):
         w = want[what].cpu().numpy()
         top = float(np.abs(w).max())

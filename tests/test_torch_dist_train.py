@@ -22,10 +22,10 @@
   checkpoint every step, a fault at step 2 on both ranks): the losses of
   one process's loop at rtol 1e-3 (three more AdamW steps after the
   first), one restart each.
-* The step builders take the dense and MoE families on a (2, 2) mesh
-  (``tests/test_torch_tensor_parallel.py`` runs them there), and refuse a
-  model axis larger than one for ssm, hybrid, encdec and vlm (ROADMAP
-  queue 1 D.2 item 6).
+* The step builders take every family on (2, 1), (1, 2) and (2, 2)
+  meshes (``tests/test_torch_tensor_parallel.py`` and
+  ``tests/test_torch_tp_families.py`` run them there), and refuse a mesh
+  of more than one device on one process.
 """
 import os
 import subprocess
@@ -284,30 +284,30 @@ def test_launcher_under_torchrun_variables(tmp_path):
 
 
 def test_moe_and_model_axis_refused():
-    """Dense and MoE build on (2, 2) and (2, 1); a model axis larger than
-    one is refused for the families whose layers do not run tensor
-    parallel yet, naming ROADMAP D.2 item 6, and a mesh of more than one
-    device on one process is refused as before."""
+    """Every family's three steps build on (2, 1), (1, 2), (2, 2), (1, 1)
+    and (pod, data, model) = (2, 1, 2)
+    (``tests/test_torch_tensor_parallel.py`` and
+    ``tests/test_torch_tp_families.py`` run them there), and a mesh of more
+    than one device on one process is refused as before."""
     class Mesh:
-        def __init__(self, data, model, local_size=1):
-            self.shape = (data, model)
-            self.axis_names = ("data", "model")
+        def __init__(self, data, model, local_size=1, pod=None):
+            self.shape = (data, model) if pod is None else (pod, data, model)
+            self.axis_names = ("data", "model") if pod is None else (
+                "pod", "data", "model")
             self.local_size = local_size
 
-    moe = tconfigs.get_config("moonshot-v1-16b-a3b").reduced()
     _, tcfg = _cfgs()
-    for cfg in (moe, tcfg):
-        for shape in ((2, 1), (2, 2), (1, 1)):
-            TSteps.build_train_step(cfg, Mesh(*shape))
-            TSteps.build_prefill_step(cfg, Mesh(*shape))
-            TSteps.build_serve_step(cfg, Mesh(*shape))
-    for arch in ("mamba2-370m", "recurrentgemma-9b", "whisper-small",
-                 "llama-3.2-vision-90b"):
-        cfg = tconfigs.get_config(arch).reduced()
-        TSteps.build_train_step(cfg, Mesh(2, 1))
-        for build in (TSteps.build_train_step, TSteps.build_prefill_step,
-                      TSteps.build_serve_step):
-            with pytest.raises(NotImplementedError, match="D.2 item 6"):
-                build(cfg, Mesh(1, 2))
+    for arch in ("moonshot-v1-16b-a3b", "mamba2-370m", "recurrentgemma-9b",
+                 "whisper-small", "llama-3.2-vision-90b"):
+        cfgs = (tconfigs.get_config(arch).reduced(),) + (
+            (tcfg,) if arch == "moonshot-v1-16b-a3b" else ())
+        for cfg in cfgs:
+            for mesh in (Mesh(2, 1), Mesh(1, 2), Mesh(2, 2), Mesh(1, 1),
+                         Mesh(1, 2, pod=2)):
+                for build in (TSteps.build_train_step,
+                              TSteps.build_prefill_step,
+                              TSteps.build_serve_step):
+                    step, abstract = build(cfg, mesh)
+                    assert callable(step) and "params" in abstract
     with pytest.raises(NotImplementedError, match="one process"):
         TSteps.build_train_step(tcfg, Mesh(2, 1, local_size=2))

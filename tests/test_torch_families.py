@@ -270,6 +270,44 @@ def test_causal_conv_and_ssd_match_reference():
     close(th, jh, rtol=1e-4, atol=1e-5)
 
 
+def test_ssd_gradient_finite_where_the_masked_decay_overflows():
+    """At full width a chunk's decays can pass e^88.7 above the diagonal
+    (dt * |A| summed over a chunk: up to 96.33 in mamba2-370m's forward at
+    B = 16, S = 64, ``tools/torch_tp_depth.py``), where float32's exp is
+    inf; masked after the exp (the
+    reference's where(causal, exp(seg), 0)) its gradient is 0 * inf =
+    NaN. The port masks before the exp: the same forward as the
+    reference's, every gradient finite, and those of x, dt, B and C equal
+    to the step-by-step recurrence's (``ssd_step``, which has no such
+    block). A's is finite only: the chunked form reaches it through a
+    reverse cumsum whose terms cancel (0.5 % of its largest at these
+    decays, in float32)."""
+    rng = np.random.default_rng(5)
+    h, p, n, s = 2, 4, 3, 16
+    xh = rng.normal(size=(B, s, h, p)).astype(np.float32)
+    dt = (8.0 + np.abs(rng.normal(size=(B, s, h)))).astype(np.float32)
+    a = -np.ones(h, np.float32)
+    b_, c_ = (rng.normal(size=(B, s, n)).astype(np.float32) for _ in "bc")
+    jy, _ = JS.ssd_chunked(*map(jnp.asarray, (xh, dt, a, b_, c_)), chunk=s)
+    ins = [torch.from_numpy(v).requires_grad_(True)
+           for v in (xh, dt, a, b_, c_)]
+    ty, _ = TS.ssd_chunked(*ins, chunk=s)
+    close(ty, jy, rtol=1e-5, atol=1e-5)
+    got = torch.autograd.grad(ty.sum(), ins)
+    ref = [v.detach().clone().requires_grad_(True) for v in ins]
+    state, ys = torch.zeros((B, h, p, n)), []
+    for t in range(s):
+        y, state = TS.ssd_step(ref[0][:, t:t + 1], ref[1][:, t:t + 1],
+                               ref[2], ref[3][:, t:t + 1],
+                               ref[4][:, t:t + 1], state)
+        ys.append(y)
+    want = torch.autograd.grad(torch.cat(ys, 1).sum(), ref)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(g).all(), i
+        if i != 2:
+            close(g, w, rtol=1e-4, atol=1e-4)
+
+
 def test_rg_lru_matches_reference():
     """The sequential scan against the reference's associative scan (the
     same values in another float order: rtol 1e-5) and the step."""

@@ -402,7 +402,7 @@ def test_local_q_heads_read_their_global_kv_head(m, rank, kv_of, block):
         axis_names = ("data", "model")
         coords = (0, rank)
 
-    mp = ModelParallel(cfg, Mesh(), TS.param_specs(cfg, Mesh()))
+    mp = ModelParallel(cfg, Mesh())
     assert (mp.heads, mp.kv, mp.vocab, mp.mlp) == (True, m == 2, True, True)
     assert mp.kv_of == kv_of and mp.kv_block() == block
 

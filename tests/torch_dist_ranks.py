@@ -775,3 +775,213 @@ def tp_card_rank(rank: int, world: int, tmp: str) -> None:
     if rank == 0:
         save(tmp, "tpcard", rank, **out)
     done()
+
+
+# ---------------------------------- tensor parallel: the other families ----
+#: ``tests/test_torch_tp_families.py``'s archs (reduced, TP_VOCAB) and the
+#: meshes each runs on: tag -> (shape, axes)
+TPF_ARCHS = ("mamba2-370m", "recurrentgemma-9b", "whisper-small",
+             "llama-3.2-vision-90b")
+TPF_MESHES = {"1x2": ((1, 2), ("data", "model")),
+              "2x2": ((2, 2), ("data", "model")),
+              "1x4": ((1, 4), ("data", "model"))}
+#: the (arch, mesh tag) cases: every arch on (1, 2) and (2, 2), the ssm
+#: and hybrid also on (1, 4)
+TPF_CASES = tuple((a, t) for a in TPF_ARCHS for t in TPF_MESHES
+                  if t != "1x4" or a in ("mamba2-370m", "recurrentgemma-9b"))
+TPF_B, TPF_S = 4, 16
+#: the arch ``train.loop.train`` runs on (1, 2), a fault and a restore
+#: included (its part-wise leaves go through the checkpoint)
+TPF_LOOP_ARCH = "mamba2-370m"
+#: the float32 check: (arch, layers) trained one step on (1, 2) with every
+#: parameter in float32, where no bf16 rounding can flip
+TPF_F32 = (("mamba2-370m", 8), ("recurrentgemma-9b", 6))
+#: vlm's cross gates in the tests' parameters (zeros would mute the
+#: cross-attention)
+TPF_GATE = 0.5
+
+
+def tpf_local_cross(cache: dict, whole: dict, mesh) -> None:
+    """Write this rank's part of the whole decode cross caches ``whole``
+    (``cross_k`` / ``cross_v`` [L, B, T, KV, hd] tensors) into ``cache``
+    (``models.model.init_cache(..., mesh=mesh)``'s): its rows over the
+    data ranks and, where the cache holds fewer kv heads, its block of
+    them."""
+    from repro_torch.distributed.tensor_parallel import (MODEL, data_ranks,
+                                                         model_axis)
+
+    dp = data_ranks(mesh)
+    for key, t in whole.items():
+        if dp is not None:
+            t = t[:, dp.rows(t.shape[1])]
+        kv = cache[key].shape[-2]
+        if kv != t.shape[-2]:
+            i = mesh.coords[mesh.axis_names.index(MODEL)]
+            assert kv * model_axis(mesh) == t.shape[-2]
+            t = t.narrow(-2, i * kv, kv)
+        cache[key].copy_(t)
+
+
+def tpf_steps(cfg, host: dict, batch: dict, cross: dict, mesh,
+              device="cpu") -> dict:
+    """Whether ``to_host`` of the rank's module gives ``host`` back bit for
+    bit, the prefill logits, :data:`TP_DECODE_STEPS` decode steps' logits
+    (the prompt's tokens fed one a step, against the cross caches
+    ``cross``) and one AdamW step (its loss, gradients and the updated
+    parameters, gathered whole) of ``cfg`` on ``mesh`` (None: one process) from the
+    reference's parameters ``host``, on ``device``."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+
+    params = M.from_host(cfg, host, device=device, mesh=mesh)
+    back = dict(_flat(M.to_host(params)))
+    same = all(np.array_equal(np.asarray(back[k]).view(np.uint8),
+                              np.asarray(v).view(np.uint8))
+               for k, v in _flat(host))
+    batch = {k: v.to(device) for k, v in batch.items()}
+    toks = batch["tokens"]
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    out = {"to_host_equal": np.asarray(same and len(back) == len(
+        list(_flat(host))))}
+    prefill, _ = S.build_prefill_step(cfg, mesh)
+    serve, _ = S.build_serve_step(cfg, mesh)
+    out["prefill"] = prefill(params, inputs)
+    cache = M.init_cache(cfg, toks.shape[0], TP_DECODE_STEPS, device=device,
+                         mesh=mesh)
+    tpf_local_cross(cache, {k: v.to(device) for k, v in cross.items()},
+                    mesh)
+    dec = []
+    for t in range(TP_DECODE_STEPS):
+        logits, cache = serve(params, cache, toks[:, t:t + 1])
+        dec.append(logits)
+    out["decode"] = torch.cat(dec, 1)
+    opt = FirstGrads(tp_optimizer())
+    step, _ = S.build_train_step(cfg, mesh, optimizer=opt)
+    params, _, loss = step(params, opt.init(params), batch)
+    out["loss"] = loss
+    for key, v in _flat(M.to_host(params)):
+        out["p/" + "/".join(key)] = (v.view(np.uint16)
+                                     if v.dtype.name == "bfloat16" else v)
+    for key, g in _flat(M.stack(M.whole(params, opt.first.items()))):
+        out["g/" + "/".join(key)] = g.float()
+    return out
+
+
+def tpf_f32_grads(arch: str, layers: int, mesh) -> tuple:
+    """(loss, {leaf path: gradient gathered whole}) of one train step of
+    ``arch`` at ``layers`` layers with every parameter in float32 (the
+    seeded init, a seeded batch of TPF_B x TPF_S) on ``mesh`` (None: one
+    process)."""
+    import dataclasses
+
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(tp_config(arch), dtype="float32",
+                              num_layers=layers)
+    params = M.init_params(cfg, 3, "cpu", mesh)
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (TPF_B, TPF_S),
+                              generator=gen) for k in ("tokens", "labels")}
+    opt = FirstGrads(tp_optimizer())
+    step, _ = S.build_train_step(cfg, mesh, optimizer=opt)
+    _, _, loss = step(params, opt.init(params), batch)
+    return float(loss), {"/".join(k): v.float() for k, v in _flat(
+        M.stack(M.whole(params, opt.first.items())))}
+
+
+class FirstGrads:
+    """The optimizer a train step is given, keeping the gradients of its
+    first update (``first``, by parameter name: the rank's slices)."""
+
+    def __init__(self, opt):
+        self.opt, self.first = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        if self.first is None:
+            self.first = {k: g.detach().clone() for k, g in grads.items()}
+        return self.opt.update(grads, state, params)
+
+
+def tpf_inputs(arrays: dict, arch: str) -> tuple:
+    """(host params, batch, cross caches) of ``arch`` from the test's
+    arrays (bf16 as uint16 bits)."""
+    def tensor(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.view(torch.bfloat16) if a.dtype == np.uint16 else t
+
+    batch = {k: tensor(arrays[f"{arch}/b/{k}"]) for k in (
+        "tokens", "labels", "frontend_embeds")
+        if f"{arch}/b/{k}" in arrays}
+    cross = {k: tensor(arrays[f"{arch}/c/{k}"]) for k in (
+        "cross_k", "cross_v") if f"{arch}/c/{k}" in arrays}
+    return _tree(arrays, f"{arch}/p/"), batch, cross
+
+
+def tpf_rank(rank: int, world: int, tmp: str) -> None:
+    """``tests/test_torch_tp_families.py`` on one of 4 ranks:
+    :func:`tpf_steps` of each of :data:`TPF_CASES` (the rank 0 of each mesh
+    writes), the float32 steps of :data:`TPF_F32` on (1, 2), then
+    ``train.loop.train`` of :data:`TPF_LOOP_ARCH` on (1, 2) with a
+    checkpoint each step and a fault at step 2. Inputs in ``<tmp>/tpf_in.npz``; writes
+    ``<tmp>/tpf_<rank>.npz``."""
+    mesh4 = process_mesh(rank, world, tmp, "tpf")
+    with np.load(os.path.join(tmp, "tpf_in.npz")) as f:
+        arrays = dict(f)
+    meshes = {tag: mesh4.sub(int(np.prod(shape)), shape, axes)
+              for tag, (shape, axes) in TPF_MESHES.items()}
+    out = {}
+    for arch, tag in TPF_CASES:
+        mesh = meshes[tag]
+        if not mesh.member:
+            continue
+        host, batch, cross = tpf_inputs(arrays, arch)
+        res = tpf_steps(tp_config(arch), host, batch, cross, mesh)
+        if mesh.rank == 0:
+            out.update({f"{arch}/{tag}/{k}": v for k, v in res.items()})
+    mesh = meshes["1x2"]
+    for arch, layers in TPF_F32 if mesh.member else ():
+        _, grads = tpf_f32_grads(arch, layers, mesh)
+        if mesh.rank == 0:
+            out.update({f"f32/{arch}/{k}": v for k, v in grads.items()})
+    if mesh.member:
+        from repro_torch.train import loop
+
+        fired = []
+
+        def hook(step):
+            if step == 2 and not fired:
+                fired.append(step)
+                raise RuntimeError("injected fault")
+
+        rep = loop.train(tp_config(TPF_LOOP_ARCH), mesh, steps=TP_LOOP_STEPS,
+                         global_batch=TPF_B, seq_len=TPF_S,
+                         ckpt_dir=os.path.join(tmp, "tpf_ckpt"),
+                         ckpt_every=1,
+                         optimizer=tp_optimizer(TP_LOOP_STEPS, 0),
+                         fault_hook=hook, log_every=0, device="cpu")
+        out.update({"loop/losses": np.asarray(rep.losses),
+                    "loop/restarts": rep.restarts})
+    save(tmp, "tpf", rank, **out)
+    mesh4.barrier()
+    done()
+
+
+def tpf_card_rank(rank: int, world: int, tmp: str) -> None:
+    """``tests/test_torch_cuda_dist.py``: :func:`tpf_steps` of the reduced
+    mamba2 on a (1, 2) mesh of gloo ranks sharing card 0, from the inputs
+    in ``<tmp>/tpf_in.npz`` (:func:`tpf_inputs`); rank 0 writes."""
+    dev = rank_device(rank, world, "gloo", "cuda")
+    mesh = process_mesh(rank, world, tmp, "tpfcard", shape=(1, world),
+                        axes=("data", "model"), device=dev)
+    with np.load(os.path.join(tmp, "tpf_in.npz")) as f:
+        arrays = dict(f)
+    arch = "mamba2-370m"
+    host, batch, cross = tpf_inputs(arrays, arch)
+    out = tpf_steps(tp_config(arch), host, batch, cross, mesh, device=dev)
+    if rank == 0:
+        save(tmp, "tpfcard", rank, **out)
+    done()

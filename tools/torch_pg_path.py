@@ -7,8 +7,12 @@ rescaling and the serve launcher under torchrun, over gloo ranks sharing
 the card), or with ``--phase16`` its phase 16 (tensor parallelism on a
 model axis and data-parallel MoE: qwen2-1.5b served on (1, 2) and (1, 4)
 and trained on (2, 2), moonshot-v1-16b-a3b at 2 layers trained on (2, 1)
-and (1, 2) and served on (1, 2), over gloo ranks sharing the card), alone
-on one CUDA card.
+and (1, 2) and served on (1, 2); and (d), the ssm, hybrid, encdec and
+vlm families on (1, 2): mamba2-370m, whisper-small, recurrentgemma-9b at
+one superblock and llama-3.2-vision-90b at 5 layers served, mamba2-370m
+and recurrentgemma-9b trained a step, mamba2-370m at 48 layers also in
+float32; over gloo ranks sharing the card),
+alone on one CUDA card.
 
 Run from the root of a checkout, on a machine with a card:
 
